@@ -1,0 +1,158 @@
+"""Shared optimizer machinery (counterpart of ``apex_tpu/optim/common.py``):
+status codes, convergence configuration and check, step quality, results.
+
+The host loop reads each step's scalars once, so the convergence check and
+the step quality are plain functions of Python floats here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import math
+from typing import Dict, Optional
+
+import numpy as np
+
+
+class Status(enum.IntEnum):
+    RUNNING = 0
+    CONVERGED = 1
+    MAX_ITERATIONS_REACHED = 2
+    COST_TOLERANCE_REACHED = 3
+    PARAMETER_TOLERANCE_REACHED = 4
+    GRADIENT_TOLERANCE_REACHED = 5
+    NUMERICAL_FAILURE = 6
+    USER_TERMINATED = 7
+    TIMEOUT = 8
+    TRUST_REGION_RADIUS_TOO_SMALL = 9
+    MIN_COST_THRESHOLD_REACHED = 10
+    ILL_CONDITIONED_JACOBIAN = 11
+    INVALID_NUMERICAL_VALUES = 12
+    FAILED = 13
+
+    @property
+    def converged(self) -> bool:
+        return self in (
+            Status.CONVERGED,
+            Status.COST_TOLERANCE_REACHED,
+            Status.PARAMETER_TOLERANCE_REACHED,
+            Status.GRADIENT_TOLERANCE_REACHED,
+            Status.MIN_COST_THRESHOLD_REACHED,
+        )
+
+
+@dataclasses.dataclass
+class ConvergenceConfig:
+    max_iterations: int = 50
+    cost_tolerance: float = 1e-6
+    parameter_tolerance: float = 1e-8
+    gradient_tolerance: float = 1e-10
+    timeout: Optional[float] = None  # seconds; checked by the host loop
+    min_cost_threshold: Optional[float] = None
+    min_trust_region_radius: float = 1e-32
+
+
+def check_convergence(
+    *,
+    iteration: int,
+    current_cost: float,
+    new_cost: float,
+    parameter_norm: float,
+    parameter_update_norm: float,
+    gradient_norm: float,
+    step_accepted: bool,
+    cfg: ConvergenceConfig,
+    trust_region_radius: Optional[float] = None,
+) -> Status:
+    """The reference's check order. ``iteration`` is the 0-based index of
+    the step that just ran, so max_iterations=N means exactly N steps.
+    Timeout is handled by the host loop."""
+    if not (math.isfinite(new_cost) and math.isfinite(parameter_update_norm)
+            and math.isfinite(gradient_norm)):
+        return Status.INVALID_NUMERICAL_VALUES
+    if iteration + 1 >= cfg.max_iterations:
+        return Status.MAX_ITERATIONS_REACHED
+    if not step_accepted:
+        return Status.RUNNING
+    if gradient_norm < cfg.gradient_tolerance:
+        return Status.GRADIENT_TOLERANCE_REACHED
+    rel_step_tol = cfg.parameter_tolerance * (parameter_norm + cfg.parameter_tolerance)
+    if iteration > 0 and parameter_update_norm <= rel_step_tol:
+        return Status.PARAMETER_TOLERANCE_REACHED
+    rel_change = abs(current_cost - new_cost) / max(current_cost, 1e-10)
+    if iteration > 0 and rel_change < cfg.cost_tolerance:
+        return Status.COST_TOLERANCE_REACHED
+    if cfg.min_cost_threshold is not None and new_cost < cfg.min_cost_threshold:
+        return Status.MIN_COST_THRESHOLD_REACHED
+    if trust_region_radius is not None and trust_region_radius < cfg.min_trust_region_radius:
+        return Status.TRUST_REGION_RADIUS_TOO_SMALL
+    return Status.RUNNING
+
+
+def compute_step_quality(current_cost: float, new_cost: float,
+                         predicted_reduction: float) -> float:
+    """rho = actual / predicted, with the reference's near-zero handling."""
+    actual = current_cost - new_cost
+    if abs(predicted_reduction) < 1e-15:
+        return 1.0 if actual > 0.0 else 0.0
+    return actual / predicted_reduction
+
+
+@dataclasses.dataclass
+class IterationStats:
+    iteration: int
+    cost: float
+    cost_change: float
+    gradient_norm: float
+    step_norm: float
+    tr_ratio: float
+    tr_radius: float
+    iter_time_ms: float
+    total_time_ms: float
+    accepted: bool
+
+    HEADER = (
+        f"{'iter':>4} {'cost':>14} {'cost_change':>12} {'|gradient|':>12} "
+        f"{'|step|':>12} {'tr_ratio':>10} {'tr_radius':>10} "
+        f"{'iter_time':>9} {'total':>9}  ok"
+    )
+
+    def line(self) -> str:
+        return (
+            f"{self.iteration:>4} {self.cost:>14.6e} {self.cost_change:>12.3e} "
+            f"{self.gradient_norm:>12.3e} {self.step_norm:>12.3e} "
+            f"{self.tr_ratio:>10.3e} {self.tr_radius:>10.3e} "
+            f"{self.iter_time_ms:>8.2f}m {self.total_time_ms:>8.2f}m  "
+            f"{'✓' if self.accepted else '✗'}"
+        )
+
+
+@dataclasses.dataclass
+class SolverResult:
+    status: Status
+    iterations: int
+    initial_cost: float
+    final_cost: float
+    elapsed_seconds: float
+    variables: Dict[str, np.ndarray]
+    final_gradient_norm: float = float("nan")
+    final_step_norm: float = float("nan")
+    cost_evaluations: int = 0
+    jacobian_evaluations: int = 0
+    successful_steps: int = 0
+    unsuccessful_steps: int = 0
+    iteration_stats: Optional[list] = None
+
+    @property
+    def converged(self) -> bool:
+        return self.status.converged
+
+    def summary(self) -> str:
+        frac = ((self.initial_cost - self.final_cost) / self.initial_cost * 100.0
+                if self.initial_cost > 0 else 0.0)
+        return (
+            f"status={self.status.name} iters={self.iterations} "
+            f"cost {self.initial_cost:.6e} -> {self.final_cost:.6e} "
+            f"({frac:.2f}% reduction) in {self.elapsed_seconds*1e3:.1f} ms"
+        )
