@@ -4,9 +4,10 @@ bundle-adjustment solve (implicit Schur with the Schur-Jacobi
 preconditioner, Levenberg-Marquardt in python loop mode), with the landmark
 block inverse as a hand-written CUDA kernel.
 
-Everything is explicit: the dtype (f64 by default) and the device are
-passed to ``Problem.compile(dtype=..., device=...)``, and ``device="cuda"``
-without a card raises. TF32 is turned off at import.
+The dtype (f64 by default) and the device (``"cuda"`` by default) are
+arguments of ``Problem.compile(dtype=..., device=...)``; ``"cuda"`` without a
+card raises, and nothing falls back to the CPU unless ``device="cpu"`` is
+asked for. TF32 is turned off at import.
 """
 
 from .device import disable_tf32

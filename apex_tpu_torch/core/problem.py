@@ -247,9 +247,10 @@ class Problem:
         return [names_sorted[i] for i in perm]
 
     def compile(self, initial_values: Optional[Dict[str, np.ndarray]] = None,
-                dtype=None, device="cpu", ordering: str = "auto") -> "CompiledProblem":
+                dtype=None, device="cuda", ordering: str = "auto") -> "CompiledProblem":
         """Freeze the graph into tensors of ``dtype`` (default f64) on
-        ``device`` (``"cpu"`` or ``"cuda"``; a missing card raises)."""
+        ``device`` (default ``"cuda"``, the card; ``"cpu"`` runs the plain
+        PyTorch path). Asking for the card where there is none raises."""
         dtype = resolve_dtype(dtype)
         device = resolve_device(device)
         np_dtype = np.float64 if dtype == torch.float64 else np.float32

@@ -33,7 +33,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # caller last set it to 0).
 launches = 0
 
-_lib = None
+# Blocks per tile of the kernel (its kThreads): the bulk copies move whole
+# tiles, and the masked edge takes the last P mod TILE blocks.
+TILE = 256
+
+# {dtype: C entry point} and PyTorch's current-stream lookup, bound by build().
+_fns: dict = {}
+_stream = None
+_config = None
 
 
 def _nvcc() -> str:
@@ -44,11 +51,12 @@ def _nvcc() -> str:
     raise FileNotFoundError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
-def build() -> ctypes.CDLL:
-    """Compile the kernel (once per source and flag set) and load it."""
-    global _lib
-    if _lib is not None:
-        return _lib
+def build() -> dict:
+    """Compile the kernel (once per source and flag set), load it and bind
+    its entry points: ``{dtype: C function}``."""
+    global _stream, _config
+    if _fns:
+        return _fns
     tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"liblandmark_blocks_{tag}.so"
     if not so.exists():
@@ -60,13 +68,34 @@ def build() -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    for name in ("invert_landmark_blocks_f32", "invert_landmark_blocks_f64"):
+    for dtype, name in ((torch.float32, "invert_landmark_blocks_f32"),
+                        (torch.float64, "invert_landmark_blocks_f64")):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+        _fns[dtype] = fn
+    _config = lib.invert_landmark_blocks_config
+    _config.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    _config.restype = ctypes.c_int
+    # the raw cudaStream_t of PyTorch's current stream on a device index, as
+    # an int (what Triton's launcher uses); no torch.cuda.Stream is made
+    _stream = torch._C._cuda_getCurrentRawStream
+    return _fns
+
+
+def launch_config(dtype, device=0) -> dict:
+    """The kernel's launch configuration for ``dtype`` on a CUDA device
+    index: blocks per tile, stages, shared bytes, SMs, resident CTAs per SM
+    and registers per thread."""
+    build()
+    info = (ctypes.c_int * 7)()
+    err = _config(int(dtype == torch.float64), device, info)
+    if err != 0:
+        raise RuntimeError(f"invert_landmark_blocks config failed: CUDA error {err}")
+    keys = ("tile_blocks", "in_stages", "out_stages", "shared_bytes", "sms",
+            "ctas_per_sm", "registers")
+    return dict(zip(keys, info))
 
 
 def _thresholds(dtype):
@@ -138,8 +167,8 @@ def invert_landmark_blocks_plain(Hpp):
 
 def invert_landmark_blocks(Hpp):
     """[P,3,3] symmetric blocks -> regularized inverses [P,3,3]. A CUDA
-    tensor goes through the kernel (contiguous f32 or f64 required); a CPU
-    tensor through the plain version."""
+    tensor goes through the kernel (contiguous, 16-byte aligned, f32 or f64
+    required); a CPU tensor through the plain version."""
     global launches
     if Hpp.device.type == "cpu":
         return invert_landmark_blocks_plain(Hpp)
@@ -151,15 +180,16 @@ def invert_landmark_blocks(Hpp):
         raise ValueError(f"landmark blocks must be [P, 3, 3], got {tuple(Hpp.shape)}")
     if not Hpp.is_contiguous():
         raise ValueError("landmark blocks must be contiguous")
-    out = torch.empty(Hpp.shape, dtype=Hpp.dtype, device=Hpp.device)
     P = Hpp.shape[0]
+    out = torch.empty_like(Hpp)
     if P == 0:
         return out
-    lib = build()
-    fn = (lib.invert_landmark_blocks_f64 if Hpp.dtype == torch.float64
-          else lib.invert_landmark_blocks_f32)
-    err = fn(Hpp.data_ptr(), out.data_ptr(), P, Hpp.device.index,
-             torch.cuda.current_stream(Hpp.device).cuda_stream)
+    if Hpp.data_ptr() % 16:
+        raise ValueError("landmark blocks must start at a 16-byte aligned address "
+                         "(the kernel's bulk copies need it)")
+    fn = (_fns or build())[Hpp.dtype]
+    index = Hpp.get_device()
+    err = fn(Hpp.data_ptr(), out.data_ptr(), P, index, _stream(index))
     if err != 0:
         raise RuntimeError(f"invert_landmark_blocks kernel launch failed: CUDA error {err}")
     launches += 1

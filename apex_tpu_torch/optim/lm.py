@@ -206,8 +206,9 @@ class LevenbergMarquardt:
     # ------------------------------------------------------------------
     def optimize(self, problem, initial_values=None) -> SolverResult:
         """Run the optimization. A ``Problem`` is compiled with
-        ``Problem.compile``'s defaults (f64 on the CPU); compile it yourself
-        to pick the dtype and the device."""
+        ``Problem.compile``'s defaults (f64 on the card, which raises where
+        there is none); compile it yourself to pick the dtype and the
+        device."""
         cfg = self.config
         if cfg.mode != "python":
             raise NotImplementedError(

@@ -5,10 +5,11 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order,
 each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. build: compile the landmark-block kernel from ``apex_tpu_torch/csrc``;
+2. build: compile the landmark-block kernel from ``apex_tpu_torch/csrc``, and
+   its launch configuration per dtype (tile, stages, residency, registers);
 3. kernel: the CUDA landmark-block inverse against its plain PyTorch version
    on the card, at P = 65,132 (trafalgar's landmarks) and 993,923 (venice's),
-   f32 and f64, with the median time of 25 CUDA-event-timed runs of each;
+   f32 and f64: bitwise equal, and timed (see ``phase_kernel``);
 4. small-slice parity: ``synthetic_ba(8, 150, seed=0)`` solved exactly in
    f64 on the card and on the CPU: same iterations and status, final cost
    within rtol 1e-8 (CUDA index_add_ sums in atomic order, ~1e-15 apart);
@@ -29,7 +30,13 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNEL_RUNS = 25
+CALL_RUNS = 25  # single calls timed one by one (median)
+TIMED_LAUNCHES = 100  # back-to-back launches between two events
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}  # H100 SXM, no tensor cores
+# operations per block in csrc/landmark_blocks.cu, each division, sqrt, acos
+# and cos counted as one
+OPS_PER_BLOCK = 105
 
 
 def emit(obj):
@@ -51,13 +58,15 @@ def kernel_blocks(n, seed=0):
 
 
 def median_ms(fn, x):
+    """Median of CALL_RUNS single calls, each between two CUDA events: the
+    host's work for the call and the kernel together."""
     import torch
 
     for _ in range(3):
         fn(x)
     torch.cuda.synchronize()
     times = []
-    for _ in range(KERNEL_RUNS):
+    for _ in range(CALL_RUNS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -68,29 +77,81 @@ def median_ms(fn, x):
     return statistics.median(times)
 
 
+def device_and_host_us(fn, copies):
+    """(device us per launch, host us per call) of TIMED_LAUNCHES calls of
+    ``fn`` over ``copies`` in turn. The calls are queued behind a sleeping
+    kernel, so the card runs them back to back between the two events
+    whatever the host's pace; the host clock around the same calls gives
+    the host's time. The sleep doubles until the start event is still
+    pending when the last call is queued."""
+    import torch
+
+    for x in copies:
+        fn(x)
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(TIMED_LAUNCHES):
+            fn(copies[i % len(copies)])
+        host_s = time.perf_counter() - t0
+        queued_in_time = not start.query()
+        end.record()
+        end.synchronize()
+        if queued_in_time:
+            return (start.elapsed_time(end) * 1e3 / TIMED_LAUNCHES,
+                    host_s * 1e6 / TIMED_LAUNCHES)
+        cycles *= 2
+
+
+def bound_us(P, dtype_name):
+    """The least time the card could take: each input and output byte moved
+    once at the HBM rate, or the operations at the peak rate of the dtype,
+    whichever is longer."""
+    size = 8 if dtype_name == "float64" else 4
+    bytes_us = 2 * 9 * size * P / HBM_BYTES_PER_S * 1e6
+    ops_us = OPS_PER_BLOCK * P / PEAK_OPS_PER_S[dtype_name] * 1e6
+    return (bytes_us, "bytes") if bytes_us >= ops_us else (ops_us, "operations")
+
+
 def phase_kernel(P, dtype):
-    import numpy as np
+    """Bitwise agreement with the plain version, then the kernel's device
+    time per launch (rotating over enough input copies to exceed the 50 MB L2
+    at venice scale; one warm copy at trafalgar scale, as the solve finds
+    Hpp right after writing it), the host time per call, the single-call
+    time, the plain version's time, and the device time of a plain copy of
+    the same inputs."""
     import torch
 
     from apex_tpu_torch.kernels import landmark_blocks as lb
 
+    name = str(dtype).replace("torch.", "")
     H = torch.as_tensor(kernel_blocks(P), dtype=dtype).cuda()
     k = lb.invert_landmark_blocks(H)
     p = lb.invert_landmark_blocks_plain(H)
     torch.cuda.synchronize()
-    kn, pn = k.double().cpu().numpy(), p.double().cpu().numpy()
-    if not np.all(np.isfinite(kn)):
-        raise AssertionError(f"kernel output not finite (P={P}, {dtype})")
-    rel = float(np.max(np.abs(kn - pn) / (np.abs(pn) + 1.0)))
-    if dtype == torch.float64:
-        if not rel < 1e-10:
-            raise AssertionError(f"f64 kernel vs plain: max rel {rel} >= 1e-10 (P={P})")
-    else:
-        np.testing.assert_allclose(kn, pn, rtol=1e-3, atol=1e-4)
-    out = dict(phase="kernel", P=P, dtype=str(dtype).replace("torch.", ""),
-               max_abs_err=float(np.max(np.abs(kn - pn))), max_rel_err=rel,
-               ms=median_ms(lb.invert_landmark_blocks, H),
-               plain_ms=median_ms(lb.invert_landmark_blocks_plain, H), runs=KERNEL_RUNS)
+    if not bool(torch.isfinite(k).all()):
+        raise AssertionError(f"kernel output not finite (P={P}, {name})")
+    max_abs = float((k - p).abs().max())
+    if not torch.equal(k, p):
+        raise AssertionError(f"kernel differs from plain (P={P}, {name}): max abs {max_abs}")
+    # four copies of a venice-scale input (143 MB in f32) are far beyond L2
+    copies = [H] + ([H.clone() for _ in range(3)] if P > 65_132 else [])
+    device_us, host_us = device_and_host_us(lb.invert_landmark_blocks, copies)
+    # the same bytes read and written by a plain copy: the rate this card
+    # streams in practice, a yardstick beside the bound (not the same function)
+    copy_us, _ = device_and_host_us(torch.clone, copies)
+    bound, bound_by = bound_us(P, name)
+    out = dict(phase="kernel", P=P, dtype=name, max_abs_err=max_abs, bitwise=True,
+               device_us=device_us, bound_us=bound, bound_by=bound_by,
+               share=bound / device_us, copy_us=copy_us, host_us=host_us,
+               call_ms=median_ms(lb.invert_landmark_blocks, H),
+               plain_ms=median_ms(lb.invert_landmark_blocks_plain, H),
+               copies=len(copies), launches_timed=TIMED_LAUNCHES, call_runs=CALL_RUNS)
     emit(out)
     return out
 
@@ -138,7 +199,7 @@ def phase_full_slice():
     emit(dict(phase="full_slice_build", cameras=ds.num_cameras, points=ds.num_points,
               observations=ds.num_observations, seconds=time.perf_counter() - t0))
     lb.launches = 0
-    total = 0
+    total = iterations = 0
     for dtype in (torch.float64, torch.float32):
         t0 = time.perf_counter()
         cp = problem.compile(dtype=dtype, device="cuda")
@@ -154,6 +215,7 @@ def phase_full_slice():
         seconds = time.perf_counter() - t0
         launched = lb.launches - before
         total += launched
+        iterations += res.iterations
         r0 = rmse(res.initial_cost, ds.num_observations)
         r1 = rmse(res.final_cost, ds.num_observations)
         emit(dict(phase="full_slice", dtype=str(dtype).replace("torch.", ""),
@@ -169,7 +231,7 @@ def phase_full_slice():
         if launched < res.iterations:
             raise AssertionError(
                 f"{dtype}: {launched} kernel launches for {res.iterations} LM iterations")
-    return total
+    return total, iterations
 
 
 def main():
@@ -191,7 +253,9 @@ def main():
     t0 = time.perf_counter()
     lb.build()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              source=os.path.relpath(str(lb.SOURCE), REPO)))
+              source=os.path.relpath(str(lb.SOURCE), REPO),
+              config={str(d).replace("torch.", ""): lb.launch_config(d)
+                      for d in (torch.float32, torch.float64)}))
 
     measured = {}
     for P in (65_132, 993_923):
@@ -199,7 +263,7 @@ def main():
             measured[(P, dtype)] = phase_kernel(P, dtype)
 
     phase_small_parity()
-    launches = phase_full_slice()
+    launches, iterations = phase_full_slice()
 
     main_shape = measured[(65_132, torch.float64)]
     emit({"kernels": [{
@@ -208,11 +272,23 @@ def main():
         "source": "apex_tpu_torch/csrc/landmark_blocks.cu",
         "replaces": "apex_tpu/kernels/landmark_blocks.py:101",
         "launches": launches,
+        "launches_per_lm_iteration": launches / iterations,
         "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"],
+        "ms": main_shape["device_us"] / 1e3,
         "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_us"] / 1e3,
+        "bound_by": main_shape["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the regularized inverse
+        "device_us": main_shape["device_us"],
+        "bound_us": main_shape["bound_us"],
+        "share": main_shape["share"],
+        "host_us": main_shape["host_us"],
+        "call_ms": main_shape["call_ms"],
         "shape": [65_132, 3, 3],
         "dtype": "float64",
+        "shapes": [{key: m[key] for key in ("P", "dtype", "device_us", "bound_us", "share",
+                                            "copy_us", "host_us", "call_ms", "plain_ms")}
+                   for m in measured.values()],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -123,6 +123,18 @@ def test_no_card_no_fallback(monkeypatch, small_ba):
         build_ba_problem(small_ba).compile(device="cuda")
 
 
+def test_entry_points_default_to_the_card(small_ba):
+    """``compile()`` and ``optimize(Problem)`` with no device ask for the
+    card; without one they raise and return no CPU result."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; test_torch_cuda.py checks the default lands on it")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        build_ba_problem(small_ba).compile()
+    cfg = apx.LevenbergMarquardtConfig(linear_solver_type="schur_implicit", max_iterations=3)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        apx.LevenbergMarquardt(cfg).optimize(build_ba_problem(small_ba))
+
+
 @pytest.mark.parametrize("change,match", [
     (dict(linear_solver_type="dense_cholesky"), "ROADMAP A.3"),
     (dict(linear_solver_type="schur_explicit"), "ROADMAP A.3"),
