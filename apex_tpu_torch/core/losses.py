@@ -83,6 +83,9 @@ def HuberLoss(scale: float = 1.345) -> Loss:
     return Loss("huber", (scale,))
 
 
-def loss_by_name(name: str, scale: float) -> Loss:
-    """The CLI's ``--loss``/``--loss-scale`` pair as a Loss."""
-    return HuberLoss(scale) if name == "huber" else Loss(name)
+def loss_by_name(name: str, scale: float | None = None) -> Loss:
+    """The CLIs' ``--loss``/``--loss-scale`` pair as a Loss (Huber's default
+    scale when ``scale`` is None)."""
+    if name == "huber":
+        return HuberLoss() if scale is None else HuberLoss(scale)
+    return Loss(name)

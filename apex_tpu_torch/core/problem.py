@@ -3,10 +3,11 @@
 
 - variable pools: one tensor per manifold (``[N, S]``), per-DOF free masks
   and storage-space bounds;
-- factor groups: bulk-added residual blocks sharing one signature, with
-  stacked measurement data, loss parameters, optional per-row weights and
-  int64 index/column tensors. Linearization is one batched kernel per group
-  with the corrector applied after it.
+- factor groups: single residual blocks grouped by (factor signature, loss
+  kind), then each bulk-added batch, with stacked measurement data, loss
+  parameters, optional per-row weights and int64 index/column tensors.
+  Linearization is one batched kernel per group with the corrector applied
+  after it.
 
 ``Problem`` is the mutable host-side builder. ``CompiledProblem`` holds the
 tensors on one device in one dtype; the state threaded through the
@@ -73,19 +74,56 @@ class FactorGroup:
 
 
 class Problem:
-    """Mutable factor-graph builder. Factors are added in bulk
-    (``add_residual_block_batch``); the one-block-at-a-time path comes with
-    the between and prior factors (ROADMAP A.1)."""
+    """Mutable factor-graph builder. Factors are added one block at a time
+    (``add_residual_block``: pose graphs) or in bulk
+    (``add_residual_block_batch``: bundle adjustment)."""
 
     def __init__(self):
         self._manifold_of: Dict[str, str] = {}
         self._values: Dict[str, np.ndarray] = {}
+        # (keys, factor, loss); None once removed
+        self._blocks: List[Optional[Tuple[Tuple[str, ...], Factor, Optional[Loss]]]] = []
         # (slot_keys, template, data, loss, loss_params, weights, count)
         self._bulk: List[tuple] = []
         self._fixed: Dict[str, Optional[List[int]]] = {}
         self._bounds: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
 
     # -- construction ------------------------------------------------------
+
+    def add_variable(self, name: str, manifold, value=None):
+        mname = manifold if isinstance(manifold, str) else manifold.name
+        G = get_manifold(mname)
+        if name in self._manifold_of and self._manifold_of[name] != mname:
+            raise ValueError(
+                f"variable {name!r} redeclared with manifold {mname}, was "
+                f"{self._manifold_of[name]}")
+        self._manifold_of[name] = mname
+        if value is not None:
+            value = np.asarray(value, dtype=np.float64)
+            if value.shape != (G.storage_dim,):
+                raise ValueError(
+                    f"variable {name!r} ({mname}) expects shape "
+                    f"({G.storage_dim},), got {value.shape}")
+            self._values[name] = value
+        return name
+
+    def add_residual_block(self, keys: Sequence[str], factor: Factor,
+                           loss: Optional[Loss] = None) -> int:
+        """Add one factor on ``keys`` (declared here if new); returns its
+        block id."""
+        keys = tuple(keys)
+        manifolds = factor.var_manifolds()
+        if len(keys) != len(manifolds):
+            raise ValueError(
+                f"{type(factor).__name__} binds {len(manifolds)} variables, "
+                f"got {len(keys)} keys")
+        for k, m in zip(keys, manifolds):
+            self.add_variable(k, m)
+        self._blocks.append((keys, factor, loss))
+        return len(self._blocks) - 1
+
+    def remove_residual_block(self, block_id: int):
+        self._blocks[block_id] = None
 
     def add_variables_batch(self, names: Sequence[str], manifold, values: np.ndarray):
         mname = manifold if isinstance(manifold, str) else manifold.name
@@ -166,7 +204,8 @@ class Problem:
 
     @property
     def num_residual_blocks(self) -> int:
-        return sum(b[-1] for b in self._bulk)
+        return (sum(1 for b in self._blocks if b is not None)
+                + sum(b[-1] for b in self._bulk))
 
     @property
     def variable_names(self) -> List[str]:
@@ -174,12 +213,35 @@ class Problem:
 
     # -- compilation -------------------------------------------------------
 
+    def _block_batches(self) -> List[tuple]:
+        """The single residual blocks as bulk batches, one per (factor
+        signature, loss kind) in first-seen order, with per-block data and
+        loss parameters stacked. They come before the bulk batches: the
+        JAX package's group order."""
+        grouped: Dict[tuple, list] = {}
+        for blk in self._blocks:
+            if blk is not None:
+                _, factor, loss = blk
+                sig = (factor.signature(), loss.kind if loss is not None else "l2")
+                grouped.setdefault(sig, []).append(blk)
+        out = []
+        for blocks in grouped.values():
+            keys0, f0, loss0 = blocks[0]
+            slot_keys = tuple(("named", tuple(b[0][s] for b in blocks), None)
+                              for s in range(len(keys0)))
+            data = {k: np.stack([np.asarray(b[1].data()[k]) for b in blocks])
+                    for k in sorted(f0.data())}
+            params = np.stack([np.asarray(b[2].params if b[2] is not None else (),
+                                          dtype=np.float64) for b in blocks])
+            out.append((slot_keys, f0, data, loss0, params, None, len(blocks)))
+        return out
+
     def _edge_arrays(self, id_of):
         """Variable-pair edges (with duplicates) as int64 arrays: the
         connectivity graph for fill-reducing ordering."""
         out_r = [np.zeros(0, dtype=np.int64)]
         out_c = [np.zeros(0, dtype=np.int64)]
-        for slot_keys, *_ in self._bulk:
+        for slot_keys, *_ in self._block_batches() + self._bulk:
             slot_ids = []
             for kind, names_s, base_idx in slot_keys:
                 base = np.asarray([id_of[k] for k in names_s], dtype=np.int64)
@@ -322,7 +384,8 @@ class Problem:
         groups: List[FactorGroup] = []
         all_host_cols: List[List[np.ndarray]] = []
         row_offset = 0
-        for slot_keys, template, bdata, loss, loss_params, wts, count in self._bulk:
+        for (slot_keys, template, bdata, loss, loss_params, wts,
+             count) in self._block_batches() + self._bulk:
             manifolds = tuple(get_manifold(m) for m in template.var_manifolds())
             d = template.residual_dim()
             lkind = loss.kind if loss is not None else "l2"

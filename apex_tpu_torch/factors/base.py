@@ -28,6 +28,11 @@ class Factor:
     def data(self) -> Dict[str, np.ndarray]:
         return {}
 
-    def group_kernel(self):
-        """The batched linearization kernel shared by this factor's group."""
+    @classmethod
+    def linearize(cls, manifolds, data, params, compute_jacobian):
         raise NotImplementedError
+
+    def group_kernel(self):
+        """The batched linearization kernel shared by this factor's group:
+        the class's ``linearize`` unless the factor binds state."""
+        return type(self).linearize

@@ -1,16 +1,80 @@
-"""Synthetic bundle-adjustment datasets (counterpart of the BA generators of
-``apex_tpu/io/synthetic.py``). Host-side numpy; the rotation conversions run
-through the port's own manifold functions in f64 on the CPU, so a seed gives
-the same arrays as the JAX package."""
+"""Synthetic datasets (counterpart of ``apex_tpu/io/synthetic.py``): the
+SE3 sphere pose graph and the bundle-adjustment generators. Host-side
+numpy; the group operations run through the port's own manifold functions
+in f64 on the CPU, with the same random draws in the same order, so a seed
+gives the same arrays as the JAX package. The SE2 graphs (ring, manhattan)
+are ROADMAP A.2, the 3D grid A.6."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..manifolds import so3
+from ..manifolds import SE3, so3
 from ..manifolds.utils import mat_to_quat, quat_to_mat
 from .bal import BalDataset
+from .graph import Edge, Graph
+
+
+def _integrate(G, start, steps):
+    """Cumulative compose start, start∘s0, start∘s0∘s1, ... -> [K+1, S],
+    one step at a time in f64."""
+    out = [torch.as_tensor(start, dtype=torch.float64)]
+    for s in torch.as_tensor(steps, dtype=torch.float64):
+        out.append(G.compose(out[-1], s))
+    return torch.stack(out).numpy()
+
+
+def synthetic_pose_graph_3d(
+    n_poses: int = 2500,
+    rings: int = 50,
+    odom_noise_t: float = 0.05,
+    odom_noise_r: float = 0.01,
+    info_weight: float = 100.0,
+    seed: int = 0,
+    closure_strides: tuple = (1,),
+) -> Graph:
+    """SE3 pose graph shaped like sphere2500: poses spiral over a sphere
+    (``rings`` latitudes), odometry along the spiral plus loop closures
+    between rings ``closure_strides`` apart; initialized by integrating
+    the noisy odometry."""
+    rng = np.random.default_rng(seed)
+    per_ring = n_poses // rings
+    radius = 10.0
+
+    k = np.arange(n_poses)
+    ring = k // per_ring
+    pos_in_ring = k % per_ring
+    phi = np.pi * (ring + 1) / (rings + 1)
+    theta = 2 * np.pi * pos_in_ring / per_ring
+    p = radius * np.stack(
+        [np.sin(phi) * np.cos(theta), np.sin(phi) * np.sin(theta), np.cos(phi)], axis=1)
+    yaw = theta + np.pi / 2
+    q = so3.exp(torch.from_numpy(
+        np.stack([np.zeros(n_poses), np.zeros(n_poses), yaw], axis=1))).numpy()
+    truth = np.concatenate([p, q], axis=1)
+
+    src = list(range(n_poses - 1))
+    dst = list(range(1, n_poses))
+    n_odom = len(src)
+    for stride in closure_strides:
+        span = stride * per_ring
+        src += list(range(n_poses - span))
+        dst += list(range(span, n_poses))
+    src = np.asarray(src)
+    dst = np.asarray(dst)
+
+    rels = SE3.between(torch.from_numpy(truth[src]), torch.from_numpy(truth[dst]))
+    tau = np.concatenate([rng.normal(0, odom_noise_t, (len(src), 3)),
+                          rng.normal(0, odom_noise_r, (len(src), 3))], axis=1)
+    meas = SE3.plus(rels, torch.from_numpy(tau)).numpy()
+
+    info = np.diag([info_weight] * 6)
+    g = Graph()
+    g.edges_se3 = [Edge(int(src[i]), int(dst[i]), meas[i], info) for i in range(len(src))]
+    est = _integrate(SE3, truth[0], meas[:n_odom])
+    g.vertices_se3 = {i: est[i] for i in range(n_poses)}
+    return g
 
 
 def _rotations(Rcw: np.ndarray):

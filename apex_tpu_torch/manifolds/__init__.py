@@ -1,6 +1,6 @@
 """Lie-group manifolds of the port: SO3, SE3 and R^n (the groups the
-bundle-adjustment path binds). SO2, SE2 and the extended groups are
-ROADMAP A.2 and A.7."""
+bundle-adjustment and SE3 pose-graph paths bind), with their tangent
+Jacobians. SO2, SE2 and the extended groups are ROADMAP A.2 and A.7."""
 
 from .base import LieGroup
 from .rn import Rn

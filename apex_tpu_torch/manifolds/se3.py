@@ -7,7 +7,16 @@ import torch
 
 from . import so3
 from .base import LieGroup
-from .utils import quat_conj, quat_mul, quat_rotate
+from .utils import (
+    q_coeff_1,
+    q_coeff_2,
+    q_coeff_3,
+    quat_conj,
+    quat_mul,
+    quat_rotate,
+    quat_to_mat,
+    skew,
+)
 
 DOF = 6
 STORAGE_DIM = 7
@@ -52,6 +61,66 @@ def log(x):
     return torch.cat([rho, theta], dim=-1)
 
 
+def adjoint(x):
+    """Ad = [[R, [t]x R], [0, R]] for tangent [rho, theta]."""
+    R = quat_to_mat(_q(x))
+    top = torch.cat([R, skew(_t(x)) @ R], dim=-1)
+    bot = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def _Q_left(rho, theta):
+    """Barfoot's Q: the (rho, theta) off-diagonal block of Jl_SE3."""
+    theta2 = torch.sum(theta * theta, dim=-1)[..., None, None]
+    P = skew(rho)
+    T = skew(theta)
+    TP = T @ P
+    PT = P @ T
+    TPT = TP @ T
+    TTP = T @ TP
+    PTT = PT @ T
+    TPTT = TPT @ T
+    TTPT = TTP @ T
+    c1 = q_coeff_1(theta2)  # (t - sin t)/t^3
+    c2 = q_coeff_2(theta2)  # (t^2/2 + cos t - 1)/t^4
+    c3 = q_coeff_3(theta2)  # (t - sin t - t^3/6)/t^5
+    return (
+        0.5 * P
+        + c1 * (TP + PT + TPT)
+        + c2 * (TTP + PTT - 3.0 * TPT)
+        + 0.5 * (c2 + 3.0 * c3) * (TPTT + TTPT)
+    )
+
+
+def _upper_block(a, b):
+    """[[a, b], [0, a]] from (..., 3, 3) blocks."""
+    top = torch.cat([a, b], dim=-1)
+    bot = torch.cat([torch.zeros_like(a), a], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def ljac(tau):
+    """Jl_SE3 = [[Jl(theta), Q(rho, theta)], [0, Jl(theta)]]."""
+    rho, theta = tau[..., :3], tau[..., 3:]
+    return _upper_block(so3.ljac(theta), _Q_left(rho, theta))
+
+
+def rjac(tau):
+    """Jr(tau) = Jl(-tau)."""
+    return ljac(-tau)
+
+
+def ljac_inv(tau):
+    """Jl^{-1} = [[Jl^{-1}, -Jl^{-1} Q Jl^{-1}], [0, Jl^{-1}]]."""
+    rho, theta = tau[..., :3], tau[..., 3:]
+    Jli = so3.ljac_inv(theta)
+    return _upper_block(Jli, -((Jli @ _Q_left(rho, theta)) @ Jli))
+
+
+def rjac_inv(tau):
+    return ljac_inv(-tau)
+
+
 def act(x, v):
     return quat_rotate(_q(x), v) + _t(x)
 
@@ -71,4 +140,9 @@ SE3 = LieGroup(
     log=log,
     normalize=normalize,
     act=act,
+    adjoint=adjoint,
+    rjac=rjac,
+    ljac=ljac,
+    rjac_inv=rjac_inv,
+    ljac_inv=ljac_inv,
 )

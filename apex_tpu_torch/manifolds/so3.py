@@ -13,6 +13,7 @@ from .utils import (
     quat_mul,
     quat_normalize,
     quat_rotate,
+    quat_to_mat,
     sinc3_c,
     small_angle_threshold,
     skew,
@@ -74,10 +75,26 @@ def _skew_terms(theta):
     return theta2, S, S @ S, eye
 
 
+def adjoint(q):
+    return quat_to_mat(q)
+
+
+def rjac(theta):
+    """Right Jacobian: I - B(t)[t]x + C(t)[t]x^2."""
+    theta2, S, S2, eye = _skew_terms(theta)
+    return eye - cosc_b(theta2) * S + sinc3_c(theta2) * S2
+
+
 def ljac(theta):
     """Left Jacobian: I + B(t)[t]x + C(t)[t]x^2."""
     theta2, S, S2, eye = _skew_terms(theta)
     return eye + cosc_b(theta2) * S + sinc3_c(theta2) * S2
+
+
+def rjac_inv(theta):
+    """Jr^{-1} = I + 1/2 [t]x + D(t) [t]x^2."""
+    theta2, S, S2, eye = _skew_terms(theta)
+    return eye + 0.5 * S + jlinv_d(theta2) * S2
 
 
 def ljac_inv(theta):
@@ -102,4 +119,9 @@ SO3 = LieGroup(
     log=log,
     normalize=normalize,
     act=act,
+    adjoint=adjoint,
+    rjac=rjac,
+    ljac=ljac,
+    rjac_inv=rjac_inv,
+    ljac_inv=ljac_inv,
 )

@@ -164,3 +164,30 @@ def jlinv_d(theta2):
         return 1.0 / t2 - (1.0 + torch.cos(t)) / (2.0 * t * torch.sin(t))
 
     return _switch(theta2, exact, taylor)
+
+
+def q_coeff_1(theta2):
+    """(theta - sin theta) / theta^3, the same as sinc3_c."""
+    return sinc3_c(theta2)
+
+
+def q_coeff_2(theta2):
+    """(theta^2/2 + cos(theta) - 1) / theta^4."""
+    taylor = 1.0 / 24.0 - theta2 / 720.0 + theta2 * theta2 / 40320.0
+
+    def exact(t2):
+        t = torch.sqrt(t2)
+        return (t2 / 2.0 + torch.cos(t) - 1.0) / (t2 * t2)
+
+    return _switch(theta2, exact, taylor)
+
+
+def q_coeff_3(theta2):
+    """(theta - sin(theta) - theta^3/6) / theta^5."""
+    taylor = -1.0 / 120.0 + theta2 / 5040.0 - theta2 * theta2 / 362880.0
+
+    def exact(t2):
+        t = torch.sqrt(t2)
+        return (t - torch.sin(t) - t2 * t / 6.0) / (t2 * t2 * t)
+
+    return _switch(theta2, exact, taylor)

@@ -7,9 +7,11 @@
 - convergence checked after each iteration in the reference's order
 
 Each iteration runs eagerly on the problem's device and reads its scalars
-(costs, norms, predicted reduction) back once. The linear solver ported is
-``schur_implicit``; ``mode="jit"``, a whole solve captured without host
-syncs, is ROADMAP A.8.
+(costs, norms, predicted reduction) back once. The linear solvers ported are
+``schur_implicit`` (bundle adjustment) and ``banded_cholesky``, alias
+``sparse_cholesky`` (pose graphs: band assembly and block cyclic
+reduction); ``mode="jit"``, a whole solve captured without host syncs, is
+ROADMAP A.8.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import weakref
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from ..core.problem import CompiledProblem
 from .common import (
@@ -34,8 +37,6 @@ from .common import (
 _NOT_PORTED_SOLVERS = {
     "dense_cholesky": "A.3 (dense Cholesky)",
     "dense_qr": "A.3 (dense QR)",
-    "sparse_cholesky": "A.1 (banded sparse Cholesky)",
-    "banded_cholesky": "A.1 (banded sparse Cholesky)",
     "sparse_qr": "A.6 (banded QR)",
     "banded_qr": "A.6 (banded QR)",
     "sparse_general": "A.6 (general-sparsity tier)",
@@ -84,7 +85,7 @@ class LevenbergMarquardtConfig:
     pcg_q_tolerance: Optional[float] = None
     # landmark-block shift floor (None: 1e-4 in f32, 0 in f64)
     schur_pp_shift_floor: Optional[float] = None
-    # banded solver panel (the banded solver is ROADMAP A.1)
+    # banded_cholesky block size (None: default_panel of the bandwidth)
     banded_panel: int | None = None
     # Hessian hook for observers (observers are ROADMAP A.10)
     expose_matrix_data: bool = False
@@ -119,14 +120,17 @@ class LevenbergMarquardt:
         """linearize_and_solve(values, damping, iteration, jacobi_scale)
         -> (dx, g, cost, scale, predicted)."""
         cfg = self.config
-        aliases = {"iterative_schur": "schur_implicit"}
+        aliases = {"iterative_schur": "schur_implicit",
+                   "sparse_cholesky": "banded_cholesky"}
         solver_type = aliases.get(cfg.linear_solver_type, cfg.linear_solver_type)
+        if solver_type == "banded_cholesky":
+            return self._make_banded_solve_fn(cp)
         if solver_type != "schur_implicit":
             if solver_type in _NOT_PORTED_SOLVERS:
                 raise NotImplementedError(
                     f"linear solver {cfg.linear_solver_type!r} is not ported yet "
                     f"(ROADMAP {_NOT_PORTED_SOLVERS[solver_type]}); the port has "
-                    "'schur_implicit'")
+                    "'schur_implicit' and 'sparse_cholesky'")
             raise ValueError(f"unknown linear solver {cfg.linear_solver_type!r}")
         from ..linalg.schur import SchurContext
 
@@ -157,6 +161,47 @@ class LevenbergMarquardt:
 
         return solve_schur
 
+    def _make_banded_solve_fn(self, cp: CompiledProblem):
+        """Band assembly and block cyclic reduction; the predicted reduction
+        is left to the step (exact solve)."""
+        from ..linalg import banded
+
+        cfg = self.config
+        if cfg.banded_panel is None:
+            W = banded.block_bandwidth(cp)
+            if W > banded.MAX_BANDWIDTH:
+                raise NotImplementedError(
+                    f"block bandwidth {W} > {banded.MAX_BANDWIDTH}: the JAX package "
+                    "switches to its general-sparsity tier, which is not ported yet "
+                    "(ROADMAP A.6); set banded_panel to force a panel")
+        asm = banded.BandedNormalAssembler(cp, block=cfg.banded_panel)
+        core = banded.make_blocktri_cr_core(cp.total_dof, asm.m, cp.dtype)
+        D, m, n, Dp = asm.D, asm.m, asm.n, asm.Dp
+
+        def solve_banded(values, damping, iteration, jacobi_scale):
+            Dg, Cg, gv, cost = asm.assemble(values)
+            Dg = asm.pad_diag_ones(Dg)
+            if cfg.use_jacobi_scaling:
+                if iteration == 0:
+                    diag = torch.diagonal(Dg, dim1=1, dim2=2).reshape(-1)[:D]
+                    scale = 1.0 / (1.0 + torch.sqrt(diag))
+                else:
+                    scale = jacobi_scale
+                sb = torch.nn.functional.pad(scale, (0, Dp - D), value=1.0).reshape(n, m)
+                sb_prev = torch.cat([sb[:1] * 0.0, sb[:-1]])
+                Dg = Dg * sb[:, :, None] * sb[:, None, :]
+                Cg = Cg * sb[:, :, None] * sb_prev[:, None, :]
+                gv = gv * scale
+            else:
+                scale = jacobi_scale
+            bp = torch.nn.functional.pad(-gv, (0, Dp - D)).reshape(n, m)
+            dx = core(Dg, Cg, bp, damping)[:D]
+            if cfg.use_jacobi_scaling:
+                dx = dx * scale
+            return dx, gv, cost, scale, None
+
+        return solve_banded
+
     def _make_step_fn(self, cp: CompiledProblem):
         cfg = self.config
         ccfg = cfg.convergence()
@@ -165,8 +210,12 @@ class LevenbergMarquardt:
         def step(values, damping, nu, iteration, jacobi_scale):
             dx, g, current_cost, scale, predicted = solve_fn(
                 values, damping, iteration, jacobi_scale)
-            new_values = cp.apply_step(values, dx)
-            new_cost = cp.cost(new_values)
+            if predicted is None:
+                # exact solve: 0.5 step^T (lambda step - g)
+                predicted = 0.5 * torch.sum(dx * (damping * dx - g))
+            with record_function("lm.trial_cost"):
+                new_values = cp.apply_step(values, dx)
+                new_cost = cp.cost(new_values)
             # one read-back of this step's scalars
             current_cost, new_cost, predicted, gradient_norm, step_norm = torch.stack([
                 current_cost, new_cost, predicted,

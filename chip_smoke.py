@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's bundle-adjustment path once on one CUDA card.
+"""Drive the PyTorch port's bundle-adjustment and SE3 pose-graph paths once
+on one CUDA card.
 
 Run from the repository root: ``python3 chip_smoke.py``. Phases, in order,
 each printing one JSON line; any failure raises and exits non-zero:
@@ -16,7 +17,22 @@ each printing one JSON line; any failure raises and exits non-zero:
 5. full slice: the trafalgar-scale synthetic through ``build_ba_problem`` ->
    ``LevenbergMarquardt(for_bundle_adjustment())``, 10 iterations, in f64
    and in f32: finite cost, RMSE below 0.55x the initial, and at least one
-   kernel launch per LM iteration.
+   kernel launch per LM iteration;
+6. pose-graph parity: ``tests/fixtures/medium_se3_250.g2o`` through
+   ``sparse_cholesky`` in f64 on the card and on the CPU: both reach the
+   certified 5.132992631561506e-01 (rtol 1e-8) in 6 LM iterations;
+7. pose-graph full: the 2,500-pose / 50-ring synthetic sphere (sphere2500's
+   shape) through ``Graph.to_problem`` -> LM ``sparse_cholesky``,
+   ``damping="auto"``, ``cost_tolerance=1e-4``, in f64 then f32. Gates:
+   converged with the cost reduced by more than 99%; in f64 also the JAX
+   package's constants, initial cost 1830.5367061422921 (rtol 1e-10) and
+   final 8.594121916326808 (rtol 1e-8) in 4 iterations. Each dtype is
+   solved three times: the first solve (plan, library warm-up) is timed
+   apart, the second runs under ``torch.profiler`` for the device busy
+   share, the device events per LM iteration, the top device ops and the
+   device time of the ``banded.*``/``cr.*``/``lm.*`` spans, and the third
+   is the timed one. The pose-graph path has no kernel of its own (the TPU
+   reference had none there).
 
 Then the kernel summary line, and last ``{"ok": true, "device": {...}}``.
 It needs one card, and refuses to run without one.
@@ -234,6 +250,130 @@ def phase_full_slice():
     return total, iterations
 
 
+# tests/test_medium_fixture.py's certified optimum and the JAX package's
+# sphere2500 result (f64, python mode; bench.py's configuration)
+MEDIUM_SE3 = ("tests/fixtures/medium_se3_250.g2o", 5.132992631561506e-01, 6)
+SPHERE_INITIAL, SPHERE_FINAL, SPHERE_ITERATIONS = 1830.5367061422921, 8.594121916326808, 4
+PROFILE_SPANS = ("banded.linearize", "banded.assemble", "cr.eliminate", "cr.dense_fold",
+                 "cr.back_substitute", "cr.residual", "cr.refine", "cr.retry", "lm.trial_cost")
+
+
+def phase_pose_graph_parity():
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+
+    fname, certified, iterations = MEDIUM_SE3
+    problem = apx.load_g2o(os.path.join(REPO, fname)).to_problem()
+    results = {}
+    for device in ("cuda", "cpu"):
+        cfg = apx.LevenbergMarquardtConfig(
+            linear_solver_type="sparse_cholesky", max_iterations=100, cost_tolerance=1e-10,
+            parameter_tolerance=1e-14, gradient_tolerance=1e-14)
+        results[device] = apx.LevenbergMarquardt(cfg).optimize(
+            problem.compile(dtype=torch.float64, device=device))
+    for device, r in results.items():
+        if not (r.converged and r.iterations == iterations):
+            raise AssertionError(f"{device}: {r.summary()}, expected {iterations} iterations")
+        np.testing.assert_allclose(r.final_cost, certified, rtol=1e-8)
+    rc, rh = results["cuda"], results["cpu"]
+    emit(dict(phase="pose_graph_parity", file=fname, iterations=rc.iterations,
+              status=rc.status.name, cost_cuda=rc.final_cost, cost_cpu=rh.final_cost,
+              certified=certified, rel_diff_cuda=abs(rc.final_cost - certified) / certified,
+              rel_diff_cpu=abs(rh.final_cost - certified) / certified))
+
+
+def profile_solve(solve, iterations):
+    """One solve under torch.profiler: wall seconds, device busy seconds
+    (the sum of device events: kernels, copies, sets; one stream, so they do
+    not overlap), device events per LM iteration, the top device ops and the
+    spans' device and host time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    device = [e for e in events
+              if e.device_type == DeviceType.CUDA and e.name not in PROFILE_SPANS]
+    busy_us = sum(e.time_range.elapsed_us() for e in device)
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    spans = {}
+    for e in events:
+        if e.name in PROFILE_SPANS and e.device_type == DeviceType.CPU:
+            d = spans.setdefault(e.name, {"calls": 0, "host_ms": 0.0, "device_ms": 0.0})
+            d["calls"] += 1
+            d["host_ms"] += e.time_range.elapsed_us() / 1e3
+            d["device_ms"] += e.device_time_total / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return dict(wall_seconds=wall, device_busy_seconds=busy_us / 1e6,
+                device_idle_share=1.0 - busy_us / 1e6 / wall,
+                device_events=len(device), device_events_per_lm_iteration=len(device) / iterations,
+                top_device_ops_ms=[[name[:90], us / 1e3] for name, us in top], spans=spans)
+
+
+def phase_pose_graph_full():
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.io import synthetic
+    from apex_tpu_torch.linalg import banded
+
+    t0 = time.perf_counter()
+    graph = synthetic.synthetic_pose_graph_3d(n_poses=2500, rings=50, seed=0)
+    problem = graph.to_problem()
+    emit(dict(phase="pose_graph_build", poses=graph.num_vertices, edges=graph.num_edges,
+              seconds=time.perf_counter() - t0))
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        t0 = time.perf_counter()
+        cp = problem.compile(dtype=dtype, device="cuda")
+        compile_s = time.perf_counter() - t0
+        W = banded.block_bandwidth(cp)
+        core = banded.make_blocktri_cr_core(cp.total_dof, banded.default_panel(W), dtype)
+        lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+            linear_solver_type="sparse_cholesky", max_iterations=100, cost_tolerance=1e-4,
+            damping="auto"))
+        timed = []
+        for k in range(3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if k == 1:
+                profiled = profile_solve(lambda: lm.optimize(cp), res.iterations)
+                continue
+            t0 = time.perf_counter()
+            res = lm.optimize(cp)
+            torch.cuda.synchronize()
+            timed.append(time.perf_counter() - t0)
+        out = dict(phase="pose_graph_full", dtype=name, D=cp.total_dof, W=W, m=core.block,
+                   n=core.n_blocks, levels=core.levels, edges=cp.total_residual_dim // 6,
+                   status=res.status.name, iterations=res.iterations,
+                   initial_cost=res.initial_cost, final_cost=res.final_cost,
+                   compile_seconds=compile_s, first_solve_seconds=timed[0],
+                   solve_seconds=timed[1], seconds_per_lm_iteration=timed[1] / res.iterations,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   profile=profiled)
+        emit(out)
+        reduction = 1.0 - res.final_cost / res.initial_cost
+        if not (res.converged and reduction > 0.99):
+            raise AssertionError(f"{name}: {res.summary()} misses the 99% gate")
+        if dtype == torch.float64:
+            import numpy as np
+
+            np.testing.assert_allclose(res.initial_cost, SPHERE_INITIAL, rtol=1e-10)
+            np.testing.assert_allclose(res.final_cost, SPHERE_FINAL, rtol=1e-8)
+            if (res.iterations, res.status.name) != (SPHERE_ITERATIONS, "COST_TOLERANCE_REACHED"):
+                raise AssertionError(f"f64: {res.summary()}, expected 4 iterations")
+
+
 def main():
     import torch
 
@@ -264,6 +404,8 @@ def main():
 
     phase_small_parity()
     launches, iterations = phase_full_slice()
+    phase_pose_graph_parity()
+    phase_pose_graph_full()
 
     main_shape = measured[(65_132, torch.float64)]
     emit({"kernels": [{

@@ -112,3 +112,89 @@ def test_small_solve_card_matches_cpu(card):
     rh = apx.LevenbergMarquardt(cfg).optimize(problem.compile(device="cpu"))
     assert (rc.iterations, rc.status) == (rh.iterations, rh.status)
     np.testing.assert_allclose(rc.final_cost, rh.final_cost, rtol=1e-8)
+
+
+# -- the banded SE3 pose-graph path --------------------------------------------
+
+
+def _banded_spd(D, half_band, seed):
+    rng = np.random.default_rng(seed)
+    A = np.zeros((D, D))
+    for i in range(D):
+        j0 = max(0, i - half_band + 1)
+        A[i, j0:i + 1] = rng.normal(size=i + 1 - j0)
+    A = A @ A.T + D * np.eye(D)
+    W = 2 * half_band - 1
+    mask = np.abs(np.subtract.outer(np.arange(D), np.arange(D))) < W
+    return np.where(mask, A, 0.0), W, rng.normal(size=D)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("base_blocks", [2, None])
+def test_cr_solve_card_matches_cpu(card, dtype, rtol, base_blocks):
+    from apex_tpu_torch.linalg import banded
+
+    A, W, g = _banded_spd(1500, 160, seed=7)
+    solve = banded.make_blocktri_cr_solver(1500, W, dtype, base_blocks=base_blocks)
+    A_t, g_t = torch.from_numpy(A).to(dtype), torch.from_numpy(g).to(dtype)
+    x_card = solve(A_t.to(card), g_t.to(card), 0.1).cpu()
+    x_cpu = solve(A_t, g_t, 0.1)
+    scale = x_cpu.abs().max()
+    assert (x_card - x_cpu).abs().max() <= rtol * scale
+
+
+def test_band_assembly_card_matches_cpu(card):
+    from apex_tpu_torch.linalg import banded
+
+    problem = synthetic.synthetic_pose_graph_3d(n_poses=300, rings=10, seed=0).to_problem()
+    out = {}
+    for device in (card, "cpu"):
+        cp = problem.compile(dtype=torch.float64, device=device)
+        out[str(device)] = banded.BandedNormalAssembler(cp).assemble(cp.initial_values())
+    for a, b in zip(out[str(card)], out["cpu"]):
+        a = a.cpu()
+        assert (a - b).abs().max() <= 1e-12 * max(float(b.abs().max()), 1e-300)
+
+
+def test_medium_fixture_on_the_card(card):
+    """tests/test_medium_fixture.py's certified optimum, reached on the
+    card in the same 6 LM iterations."""
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "fixtures" / "medium_se3_250.g2o"
+    cfg = apx.LevenbergMarquardtConfig(
+        linear_solver_type="sparse_cholesky", max_iterations=100, cost_tolerance=1e-10,
+        parameter_tolerance=1e-14, gradient_tolerance=1e-14)
+    r = apx.LevenbergMarquardt(cfg).optimize(apx.load_g2o(path).to_problem().compile(device=card))
+    assert r.converged and r.iterations == 6
+    np.testing.assert_allclose(r.final_cost, 5.132992631561506e-01, rtol=1e-8)
+
+
+def test_retry_ladder_card_matches_cpu(card):
+    """An indefinite block-tridiagonal system: the failed factorizations
+    give NaN on the card too, and the ladder's fifth shift gives the CPU's
+    answer."""
+    from apex_tpu_torch.linalg import banded
+
+    A, _, b = _banded_spd(6 * 32, 16, seed=5)
+    lam = np.linalg.eigvalsh(A)[0]
+    A = A - (lam + 1e-3 * (np.trace(A) / A.shape[0] - lam)) * np.eye(A.shape[0])
+    A4 = A.reshape(6, 32, 6, 32)
+    Dg = torch.from_numpy(np.stack([A4[i, :, i] for i in range(6)]))
+    Cg = torch.from_numpy(np.stack([np.zeros((32, 32))] + [A4[i, :, i - 1] for i in range(1, 6)]))
+    bp = torch.from_numpy(b.reshape(6, 32))
+    core = banded.make_blocktri_cr_core(A.shape[0], 32, torch.float64, base_blocks=2)
+    x_card = core(Dg.to(card), Cg.to(card), bp.to(card)).cpu()
+    x_cpu = core(Dg, Cg, bp)
+    assert torch.isfinite(x_card).all()
+    assert (x_card - x_cpu).abs().max() <= 1e-9 * x_cpu.abs().max()
+
+
+def test_failed_cholesky_is_nan_on_the_card(card):
+    from apex_tpu_torch.linalg import banded
+
+    eye = torch.eye(8, dtype=torch.float64, device=card)
+    L = banded._cholesky(torch.stack([2.0 * eye, -eye, 2.0 * eye]))
+    assert torch.isnan(L[1]).all()
+    torch.testing.assert_close(L[0], eye * 2.0 ** 0.5)
+    torch.testing.assert_close(L[2], L[0])

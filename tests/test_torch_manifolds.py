@@ -91,3 +91,68 @@ def test_registry():
     assert get("R3").dof == 3 and get("R3").storage_dim == 3
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get("SE2")
+
+
+def _tangent_at(n, dof, seed, angle):
+    """Random tangents whose rotation part has norm ``angle`` (None: as
+    drawn)."""
+    t = np.random.default_rng(seed).normal(size=(n, dof))
+    if angle is not None:
+        rot = t[:, -3:]
+        t[:, -3:] = rot / np.linalg.norm(rot, axis=1, keepdims=True) * angle
+    return t
+
+
+ANGLES = {"random": None, "tiny": 1e-9, "near_pi": np.pi - 1e-6}
+JAC_RTOL = 1e-12
+
+
+def _close_rel(t_out, j_out):
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=JAC_RTOL, atol=JAC_RTOL)
+
+
+@pytest.mark.parametrize("angle", list(ANGLES), ids=list(ANGLES))
+@pytest.mark.parametrize("name,tg,jg,dof", GROUPS)
+@pytest.mark.parametrize("fn", ["rjac", "ljac", "rjac_inv", "ljac_inv"])
+def test_tangent_jacobians(fn, name, tg, jg, dof, angle):
+    t = _tangent_at(16, dof, seed=21, angle=ANGLES[angle])
+    _close_rel(getattr(tg, fn)(torch.from_numpy(t)), getattr(jg, fn)(jnp.asarray(t)))
+
+
+@pytest.mark.parametrize("angle", list(ANGLES), ids=list(ANGLES))
+@pytest.mark.parametrize("name,tg,jg,dof", GROUPS)
+def test_adjoint_and_derived_jacobians(name, tg, jg, dof, angle):
+    """adjoint, between_j, compose_j and log_j: every output of the
+    port's against the JAX package's."""
+    a = np.array(jg.exp(jnp.asarray(_tangent_at(16, dof, seed=22, angle=None))))
+    b = np.array(jg.exp(jnp.asarray(_tangent_at(16, dof, seed=23, angle=ANGLES[angle]))))
+    # between(a, a∘b) = b, so the between and minus Jacobians see the angle
+    ab = np.array(jg.compose(jnp.asarray(a), jnp.asarray(b)))
+    ta, tb, tab = (torch.from_numpy(v) for v in (a, b, ab))
+    ja, jb, jab = (jnp.asarray(v) for v in (a, b, ab))
+    _close_rel(tg.adjoint(ta), jg.adjoint(ja))
+    for t_out, j_out in zip(tg.between_j(ta, tab), jg.between_j(ja, jab)):
+        _close_rel(t_out, j_out)
+    for t_out, j_out in zip(tg.compose_j(ta, tb), jg.compose_j(ja, jb)):
+        _close_rel(t_out, j_out)
+    for t_out, j_out in zip(tg.log_j(tb), jg.log_j(jb)):
+        _close_rel(t_out, j_out)
+    for t_out, j_out in zip(tg.minus_j(ta, tab), jg.minus_j(ja, jab)):
+        _close_rel(t_out, j_out)
+
+
+@pytest.mark.parametrize("name,tg,jg,dof", GROUPS)
+def test_inverse_and_exp_jacobians(name, tg, jg, dof):
+    t = _tangent_at(16, dof, seed=24, angle=None)
+    x = np.array(jg.exp(jnp.asarray(t)))
+    for t_out, j_out in zip(tg.inverse_j(torch.from_numpy(x)), jg.inverse_j(jnp.asarray(x))):
+        _close_rel(t_out, j_out)
+    for t_out, j_out in zip(tg.exp_j(torch.from_numpy(t)), jg.exp_j(jnp.asarray(t))):
+        _close_rel(t_out, j_out)
+
+
+@pytest.mark.parametrize("fn", ["q_coeff_1", "q_coeff_2", "q_coeff_3"])
+def test_q_coefficients(fn):
+    theta2 = np.concatenate([10.0 ** np.linspace(-14, 1, 40), [(np.pi - 1e-6) ** 2]])
+    _close_rel(getattr(tutils, fn)(torch.from_numpy(theta2)),
+               getattr(jutils, fn)(jnp.asarray(theta2)))
