@@ -5,9 +5,11 @@ Levenberg-Marquardt in python loop mode:
 - the bundle-adjustment solve (implicit Schur with the Schur-Jacobi
   preconditioner), with the landmark block inverse as a hand-written CUDA
   kernel;
-- the SE3 pose-graph solve (G2O files or the synthetic sphere,
-  ``BetweenFactor``, ``linear_solver_type="sparse_cholesky"``: band assembly
-  and block cyclic reduction).
+- SE2 and SE3 pose graphs (G2O and TORO files, the synthetic ring,
+  manhattan and sphere graphs, ``BetweenFactor``, the prior factors, the 15
+  robust losses), solved by ``sparse_cholesky`` (band assembly and block
+  cyclic reduction) or by the dense tier, ``dense_cholesky`` (LM's default)
+  and ``dense_qr``.
 
 The dtype (f64 by default) and the device (``"cuda"`` by default) are
 arguments of ``Problem.compile(dtype=..., device=...)``; ``"cuda"`` without a
@@ -19,11 +21,11 @@ from .device import disable_tf32
 
 disable_tf32()
 
-from .core import HuberLoss, L2Loss, Loss  # noqa: E402
+from .core import CauchyLoss, HuberLoss, L1Loss, L2Loss, Loss  # noqa: E402
 from .core.problem import CompiledProblem, Problem  # noqa: E402
-from .factors import BetweenFactor  # noqa: E402
-from .io import Graph, load_g2o, save_g2o  # noqa: E402
-from .manifolds import SE3, SO3, Rn  # noqa: E402
+from .factors import BetweenFactor, ManifoldPriorFactor, PriorFactor  # noqa: E402
+from .io import Graph, load_g2o, load_toro, save_g2o, save_toro  # noqa: E402
+from .manifolds import SE2, SE3, SO2, SO3, Rn  # noqa: E402
 from .optim import (  # noqa: E402
     LevenbergMarquardt,
     LevenbergMarquardtConfig,
@@ -34,9 +36,9 @@ from .optim import (  # noqa: E402
 __version__ = "0.1.0"
 
 __all__ = [
-    "SE3", "SO3", "Rn",
-    "Problem", "CompiledProblem", "BetweenFactor",
-    "Graph", "load_g2o", "save_g2o",
-    "Loss", "L2Loss", "HuberLoss",
+    "SE2", "SE3", "SO2", "SO3", "Rn",
+    "Problem", "CompiledProblem", "BetweenFactor", "PriorFactor", "ManifoldPriorFactor",
+    "Graph", "load_g2o", "save_g2o", "load_toro", "save_toro",
+    "Loss", "L2Loss", "L1Loss", "HuberLoss", "CauchyLoss",
     "LevenbergMarquardt", "LevenbergMarquardtConfig", "SolverResult", "Status",
 ]

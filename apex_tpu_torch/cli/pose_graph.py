@@ -1,18 +1,22 @@
 """Pose-graph CLI of the port (counterpart of ``apex_tpu/cli/pose_graph.py``,
 same flags and report table).
 
-``--platform`` picks the torch device: ``cuda`` (default) or ``cpu``.
-Asking for ``cuda`` on a machine without a card raises. ``--profile``
-writes a ``torch.profiler`` trace of the solve. Not ported yet, and raising
-``NotImplementedError`` with their ROADMAP item: ``--synthetic ring`` and
-``manhattan``, TORO files and SE2 graphs (A.2), ``--optimizer gn``, ``dl``
-and ``all`` (A.5), losses other than L2 and Huber (A.4), ``--dataset``
-(A.10) and ``--jit`` (A.8).
+It takes G2O files (SE2 or SE3) and TORO files (by the suffix ``.toro`` or
+``.graph``), the synthetic ``ring``, ``manhattan`` (SE2) and ``sphere``
+(SE3) graphs, every loss of ``LOSS_BY_NAME``, and the linear solvers
+``sparse_cholesky``, ``dense_cholesky`` and ``dense_qr``. ``--platform``
+picks the torch device: ``cuda`` (default) or ``cpu``. Asking for ``cuda``
+on a machine without a card raises. ``--profile`` writes a
+``torch.profiler`` trace of the solve. Not ported yet, and raising
+``NotImplementedError`` with their ROADMAP item: ``--optimizer gn``, ``dl``
+and ``all`` (A.5), ``--linear-solver sparse_qr``, ``sparse_general`` and
+``pcg`` (A.6), ``--dataset`` (A.10) and ``--jit`` (A.8).
 
 Usage:
     python -m apex_tpu_torch.cli.pose_graph --file graph.g2o
     python -m apex_tpu_torch.cli.pose_graph --synthetic sphere --poses 2500
-    python -m apex_tpu_torch.cli.pose_graph --file graph.g2o --platform cpu
+    python -m apex_tpu_torch.cli.pose_graph --synthetic manhattan --poses 3500
+    python -m apex_tpu_torch.cli.pose_graph --file graph.toro --loss cauchy --platform cpu
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ def build_parser():
     p = argparse.ArgumentParser(
         prog="pose_graph", description="apex-tpu pose graph optimization (PyTorch port)")
     src = p.add_mutually_exclusive_group(required=True)
-    src.add_argument("--file", help="g2o file path")
+    src.add_argument("--file", help="g2o or TORO file path")
     src.add_argument("--dataset", help="named dataset (downloads; not ported)")
     src.add_argument("--synthetic", choices=["ring", "manhattan", "sphere"],
                      help="generate a synthetic dataset (offline)")
@@ -43,7 +47,7 @@ def build_parser():
         "--linear-solver", default="sparse_cholesky",
         choices=["sparse_cholesky", "sparse_qr", "sparse_general",
                  "dense_cholesky", "dense_qr", "pcg"],
-        help="linear solver tier (the port has sparse_cholesky)")
+        help="linear solver tier (the port has sparse_cholesky, dense_cholesky, dense_qr)")
     p.add_argument("--max-iterations", type=int, default=100)
     p.add_argument("--cost-tolerance", type=float, default=1e-4)
     p.add_argument("--fix-first", action="store_true", help="fix the first vertex")
@@ -58,26 +62,27 @@ def build_parser():
 
 
 def load_graph(args):
-    from apex_tpu_torch.io import load_g2o, synthetic
+    from apex_tpu_torch.io import load_g2o, load_toro, synthetic
 
     if args.dataset:
         raise NotImplementedError(
             "the dataset registry (downloads) is not ported yet (ROADMAP A.10); use --file")
     if args.synthetic:
-        if args.synthetic != "sphere":
-            raise NotImplementedError(
-                f"--synthetic {args.synthetic} is an SE2 graph, not ported yet (ROADMAP A.2)")
-        return synthetic.synthetic_pose_graph_3d(n_poses=args.poses), args.synthetic
-    if str(args.file).endswith((".toro", ".graph")):
-        raise NotImplementedError("TORO files are not ported yet (ROADMAP A.2)")
-    return load_g2o(args.file), args.file
+        if args.synthetic == "sphere":
+            return synthetic.synthetic_pose_graph_3d(n_poses=args.poses), args.synthetic
+        return (synthetic.synthetic_pose_graph_2d(n_poses=args.poses, trajectory=args.synthetic),
+                args.synthetic)
+    loader = load_toro if str(args.file).endswith((".toro", ".graph")) else load_g2o
+    return loader(args.file), args.file
 
 
 def make_loss(args):
-    from apex_tpu_torch.core.losses import loss_by_name
+    from apex_tpu_torch.core.losses import LOSS_BY_NAME, loss_by_name
 
     if args.loss == "none":
         return None
+    if args.loss not in LOSS_BY_NAME:
+        sys.exit(f"unknown loss {args.loss!r}; known: none, {', '.join(sorted(LOSS_BY_NAME))}")
     return loss_by_name(args.loss, args.loss_scale)
 
 

@@ -519,15 +519,62 @@ class CompiledProblem:
             total = total + 0.5 * torch.sum(r * r)
         return total
 
+    def _slot_cols(self, group: FactorGroup, s: int) -> torch.Tensor:
+        """[K, dof_s] global tangent columns of slot s."""
+        return group.cols[s][:, None] + torch.arange(group.manifolds[s].dof,
+                                                     device=self.device)
+
+    def scatter_normal(self, H, gvec, cost, group: FactorGroup, r, jacs):
+        """Accumulate one linearized group into the dense (H, g, cost): each
+        per-factor block J_s^T J_t and J_s^T r added in place with
+        ``index_add_`` into H's and g's storage."""
+        cost = cost + 0.5 * torch.sum(r * r)
+        D = self.total_dof
+        for s, Js in enumerate(jacs):
+            rows = self._slot_cols(group, s)
+            gvec.index_add_(0, rows.reshape(-1), (Js.mT @ r[..., None]).reshape(-1))
+            for t, Jt in enumerate(jacs):
+                flat = rows[:, :, None] * D + self._slot_cols(group, t)[:, None, :]
+                H.view(-1).index_add_(0, flat.reshape(-1), (Js.mT @ Jt).reshape(-1))
+        return H, gvec, cost
+
+    def assemble_normal(self, values):
+        """The Gauss-Newton normal equations H = J^T J (dense [D, D]),
+        g = J^T r and the cost, without the global J."""
+        D = self.total_dof
+        H = torch.zeros(D, D, dtype=self.dtype, device=self.device)
+        gvec = torch.zeros(D, dtype=self.dtype, device=self.device)
+        cost = torch.zeros((), dtype=self.dtype, device=self.device)
+        for g in self.groups:
+            r, jacs = self.group_linearize(values, g, True)
+            H, gvec, cost = self.scatter_normal(H, gvec, cost, g, r, jacs)
+        return H, gvec, cost
+
+    def assemble_dense_jacobian(self, values):
+        """The stacked residual [R] and dense Jacobian [R, D], for the QR
+        solver on small problems. Each group owns the rows
+        ``row_offset + arange(count * residual_dim)``."""
+        R, D = self.total_residual_dim, self.total_dof
+        Jd = torch.zeros(R, D, dtype=self.dtype, device=self.device)
+        parts = []
+        for g in self.groups:
+            r, jacs = self.group_linearize(values, g, True)
+            parts.append(r.reshape(-1))
+            rows = Jd[g.row_offset:g.row_offset + g.count * g.residual_dim]
+            Jg = rows.view(g.count, g.residual_dim, D)
+            for s, Js in enumerate(jacs):
+                Jg.scatter_add_(2, self._slot_cols(g, s)[:, None, :].expand(Js.shape), Js)
+        rv = torch.cat(parts) if parts else Jd.new_zeros(0)
+        return rv, Jd
+
     def normal_diag_max(self, values) -> torch.Tensor:
         """max_i (J^T J)_ii without assembling H (Madsen-Nielsen initial
         damping, ``damping="auto"``)."""
         diag = torch.zeros(self.total_dof, dtype=self.dtype, device=self.device)
         for g in self.groups:
             _, jacs = self.group_linearize(values, g, True)
-            for s, G in enumerate(g.manifolds):
-                cols = g.cols[s][:, None] + torch.arange(G.dof, device=self.device)
-                diag.index_add_(0, cols.reshape(-1),
+            for s in range(len(g.manifolds)):
+                diag.index_add_(0, self._slot_cols(g, s).reshape(-1),
                                 torch.sum(jacs[s] * jacs[s], dim=1).reshape(-1))
         return torch.max(diag)
 

@@ -1,12 +1,11 @@
-"""Pose-graph container of the G2O loader (counterpart of
+"""Pose-graph container of the G2O and TORO loaders (counterpart of
 ``apex_tpu/io/graph.py``): vertices and edges with measurement and
 information matrix. The information matrix serves the chi^2 report only;
 the optimizer minimizes unweighted between-factor residuals, as the JAX
 package does.
 
 Storage: SE2 ``[x, y, theta]``; SE3 ``[tx, ty, tz, qw, qx, qy, qz]``
-(w-first; g2o files are qx, qy, qz, qw and are converted on load). SE2
-graphs load, but solving them waits for the SE2 manifold (ROADMAP A.2).
+(w-first; g2o files are qx, qy, qz, qw and are converted on load).
 """
 
 from __future__ import annotations

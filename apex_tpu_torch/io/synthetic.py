@@ -1,16 +1,16 @@
 """Synthetic datasets (counterpart of ``apex_tpu/io/synthetic.py``): the
-SE3 sphere pose graph and the bundle-adjustment generators. Host-side
-numpy; the group operations run through the port's own manifold functions
-in f64 on the CPU, with the same random draws in the same order, so a seed
-gives the same arrays as the JAX package. The SE2 graphs (ring, manhattan)
-are ROADMAP A.2, the 3D grid A.6."""
+SE2 ring and manhattan pose graphs, the SE3 sphere pose graph and the
+bundle-adjustment generators. Host-side numpy; the group operations run
+through the port's own manifold functions in f64 on the CPU, with the same
+random draws in the same order, so a seed gives the same arrays as the JAX
+package. The 3D grid is ROADMAP A.6."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..manifolds import SE3, so3
+from ..manifolds import SE2, SE3, so3
 from ..manifolds.utils import mat_to_quat, quat_to_mat
 from .bal import BalDataset
 from .graph import Edge, Graph
@@ -23,6 +23,51 @@ def _integrate(G, start, steps):
     for s in torch.as_tensor(steps, dtype=torch.float64):
         out.append(G.compose(out[-1], s))
     return torch.stack(out).numpy()
+
+
+def synthetic_pose_graph_2d(
+    n_poses: int = 434,
+    trajectory: str = "ring",
+    odom_noise=(0.02, 0.02, 0.005),
+    loop_stride: int = 0,
+    info_weight: float = 100.0,
+    seed: int = 0,
+) -> Graph:
+    """SE2 pose graph: a noisy odometry chain closed into a ring, plus a
+    loop closure every ``loop_stride`` poses; initialized by integrating the
+    noisy odometry. ``trajectory`` "ring" is a closed circle, "manhattan" an
+    M3500-style grid walk. Every edge's noise is drawn with ``odom_noise``,
+    as the reference does (its ``loop_noise`` argument is unused there, and
+    not taken here)."""
+    rng = np.random.default_rng(seed)
+    if trajectory == "ring":
+        step = np.array([2 * np.pi / n_poses * 5.0, 0.0, 2 * np.pi / n_poses])
+        steps = np.tile(step, (n_poses - 1, 1))
+    elif trajectory == "manhattan":
+        turns = rng.choice([0.0, np.pi / 2, -np.pi / 2], size=n_poses - 1, p=[0.8, 0.1, 0.1])
+        steps = np.stack([np.ones(n_poses - 1), np.zeros(n_poses - 1), turns], axis=1)
+    else:
+        raise ValueError(f"unknown trajectory {trajectory!r}")
+    truth = _integrate(SE2, np.zeros(3), steps)
+
+    src = list(range(n_poses - 1)) + [n_poses - 1]
+    dst = list(range(1, n_poses)) + [0]
+    if loop_stride > 0:
+        src += list(range(0, n_poses - loop_stride, loop_stride))
+        dst += list(range(loop_stride, n_poses, loop_stride))
+    src = np.asarray(src)
+    dst = np.asarray(dst)
+
+    rels = SE2.between(torch.from_numpy(truth[src]), torch.from_numpy(truth[dst])).numpy()
+    # a plain sum on the storage vector, not plus: the reference's measurement
+    meas = rels + rng.normal(0, 1.0, rels.shape) * np.asarray(odom_noise)[None, :]
+
+    info = np.diag([info_weight] * 3)
+    g = Graph()
+    g.edges_se2 = [Edge(int(src[k]), int(dst[k]), meas[k], info) for k in range(len(src))]
+    est = _integrate(SE2, truth[0], meas[:n_poses - 1])
+    g.vertices_se2 = {i: est[i] for i in range(n_poses)}
+    return g
 
 
 def synthetic_pose_graph_3d(

@@ -1,13 +1,15 @@
-"""Lie-group manifolds of the port: SO3, SE3 and R^n (the groups the
-bundle-adjustment and SE3 pose-graph paths bind), with their tangent
-Jacobians. SO2, SE2 and the extended groups are ROADMAP A.2 and A.7."""
+"""Lie-group manifolds of the port: SO2, SE2, SO3, SE3 and R^n, with their
+tangent Jacobians. The extended groups (SE23, SGal3, Sim3) are ROADMAP
+A.7."""
 
 from .base import LieGroup
 from .rn import Rn
+from .se2 import SE2
 from .se3 import SE3
+from .so2 import SO2
 from .so3 import SO3
 
-_REGISTRY = {"SO3": SO3, "SE3": SE3}
+_REGISTRY = {"SO2": SO2, "SO3": SO3, "SE2": SE2, "SE3": SE3}
 
 
 def get(name: str) -> LieGroup:
@@ -17,7 +19,7 @@ def get(name: str) -> LieGroup:
     if name.startswith("R") and name[1:].isdigit():
         return Rn(int(name[1:]))
     raise NotImplementedError(
-        f"manifold {name!r} is not ported yet (ROADMAP A.2: SO2/SE2, A.7: the others)")
+        f"manifold {name!r} is not ported yet (ROADMAP A.7: SE23, SGal3, Sim3)")
 
 
-__all__ = ["LieGroup", "SO3", "SE3", "Rn", "get"]
+__all__ = ["LieGroup", "SO2", "SO3", "SE2", "SE3", "Rn", "get"]

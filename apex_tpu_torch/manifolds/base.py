@@ -11,8 +11,9 @@ derived operations are written once from the group primitives:
     J_{Log(g)}_g = Jr⁻¹(Log(g)),  J_{Exp(t)}_t = Jr(t)
     between(a, b) = a⁻¹∘b;  J_a = -Ad((a⁻¹b)⁻¹),  J_b = I
 
-SO3 and SE3 have their adjoint and tangent Jacobians in closed form; R^n's
-and the autodiff fallbacks for the other groups are ROADMAP A.7.
+SO2, SE2, SO3 and SE3 have their adjoint and tangent Jacobians in closed
+form, R^n identities; the autodiff fallbacks for the other groups are
+ROADMAP A.7.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ class LieGroup:
     exp: Callable  # (..., D) -> (..., S)
     log: Callable  # (..., S) -> (..., D)
     normalize: Callable  # (..., S) -> (..., S)
-    act: Optional[Callable] = None  # (..., S), (..., 3) -> (..., 3)
+    # (..., S), (..., V) -> (..., V): V = 3 for SO3/SE3, 2 for SO2/SE2, n for R^n
+    act: Optional[Callable] = None
     adjoint: Optional[Callable] = None  # (..., S) -> (..., D, D)
     # tangent Jacobians, (..., D) -> (..., D, D)
     rjac: Optional[Callable] = None

@@ -1,4 +1,5 @@
-"""R^n as a trivial Lie group (counterpart of ``apex_tpu/manifolds/rn.py``)."""
+"""R^n as a trivial Lie group (counterpart of ``apex_tpu/manifolds/rn.py``):
+the adjoint and every tangent Jacobian are the identity."""
 
 from __future__ import annotations
 
@@ -15,6 +16,9 @@ def _ident(x):
 
 @functools.lru_cache(maxsize=None)
 def Rn(n: int) -> LieGroup:
+    def eye(x):
+        return torch.eye(n, dtype=x.dtype, device=x.device).expand(x.shape[:-1] + (n, n))
+
     return LieGroup(
         name=f"R{n}",
         dof=n,
@@ -27,4 +31,9 @@ def Rn(n: int) -> LieGroup:
         log=_ident,
         normalize=_ident,
         act=torch.add,
+        adjoint=eye,
+        rjac=eye,
+        ljac=eye,
+        rjac_inv=eye,
+        ljac_inv=eye,
     )

@@ -191,3 +191,9 @@ def q_coeff_3(theta2):
         return (t - torch.sin(t) - t2 * t / 6.0) / (t2 * t2 * t)
 
     return _switch(theta2, exact, taylor)
+
+
+def wrap_angle(theta):
+    """Wrap angle(s) to (-pi, pi] as atan2(sin, cos), the reference's formula
+    (another one drifts from it by ulps that compound along a chain)."""
+    return torch.atan2(torch.sin(theta), torch.cos(theta))

@@ -8,6 +8,8 @@
 
 Each iteration runs eagerly on the problem's device and reads its scalars
 (costs, norms, predicted reduction) back once. The linear solvers ported are
+``dense_cholesky`` (the default: dense H by scatter-add, Cholesky with the
+retry ladder), ``dense_qr`` (QR of the damped stacked Jacobian),
 ``schur_implicit`` (bundle adjustment) and ``banded_cholesky``, alias
 ``sparse_cholesky`` (pose graphs: band assembly and block cyclic
 reduction); ``mode="jit"``, a whole solve captured without host syncs, is
@@ -25,6 +27,7 @@ import torch
 from torch.profiler import record_function
 
 from ..core.problem import CompiledProblem
+from ..linalg import dense
 from .common import (
     ConvergenceConfig,
     IterationStats,
@@ -35,8 +38,6 @@ from .common import (
 )
 
 _NOT_PORTED_SOLVERS = {
-    "dense_cholesky": "A.3 (dense Cholesky)",
-    "dense_qr": "A.3 (dense QR)",
     "sparse_qr": "A.6 (banded QR)",
     "banded_qr": "A.6 (banded QR)",
     "sparse_general": "A.6 (general-sparsity tier)",
@@ -125,12 +126,16 @@ class LevenbergMarquardt:
         solver_type = aliases.get(cfg.linear_solver_type, cfg.linear_solver_type)
         if solver_type == "banded_cholesky":
             return self._make_banded_solve_fn(cp)
+        if solver_type == "dense_cholesky":
+            return self._make_dense_cholesky_solve_fn(cp)
+        if solver_type == "dense_qr":
+            return self._make_dense_qr_solve_fn(cp)
         if solver_type != "schur_implicit":
             if solver_type in _NOT_PORTED_SOLVERS:
                 raise NotImplementedError(
                     f"linear solver {cfg.linear_solver_type!r} is not ported yet "
                     f"(ROADMAP {_NOT_PORTED_SOLVERS[solver_type]}); the port has "
-                    "'schur_implicit' and 'sparse_cholesky'")
+                    "'dense_cholesky', 'dense_qr', 'sparse_cholesky' and 'schur_implicit'")
             raise ValueError(f"unknown linear solver {cfg.linear_solver_type!r}")
         from ..linalg.schur import SchurContext
 
@@ -201,6 +206,52 @@ class LevenbergMarquardt:
             return dx, gv, cost, scale, None
 
         return solve_banded
+
+    def _make_dense_cholesky_solve_fn(self, cp: CompiledProblem):
+        """Dense H = J^T J by scatter-add and a Cholesky solve with the
+        retry ladder."""
+        cfg = self.config
+
+        def solve_chol(values, damping, iteration, jacobi_scale):
+            with record_function("dense.assemble"):
+                H, g, cost = cp.assemble_normal(values)
+            if cfg.use_jacobi_scaling:
+                scale = (1.0 / (1.0 + torch.sqrt(torch.diagonal(H))) if iteration == 0
+                         else jacobi_scale)
+                H = H * scale[None, :] * scale[:, None]
+                g = g * scale
+            else:
+                scale = jacobi_scale
+            with record_function("dense.solve"):
+                dx = dense.solve_cholesky_with_retry(H, g, damping)
+            if cfg.use_jacobi_scaling:
+                dx = dx * scale
+            return dx, g, cost, scale, None
+
+        return solve_chol
+
+    def _make_dense_qr_solve_fn(self, cp: CompiledProblem):
+        """The dense stacked Jacobian and the QR of [J; sqrt(damping) I]."""
+        cfg = self.config
+
+        def solve_qr(values, damping, iteration, jacobi_scale):
+            with record_function("dense.assemble"):
+                r, J = cp.assemble_dense_jacobian(values)
+            cost = 0.5 * torch.dot(r, r)
+            if cfg.use_jacobi_scaling:
+                scale = (1.0 / (1.0 + torch.linalg.vector_norm(J, dim=0)) if iteration == 0
+                         else jacobi_scale)
+                J = J * scale[None, :]
+            else:
+                scale = jacobi_scale
+            g = J.mT @ r
+            with record_function("dense.solve"):
+                dx = dense.solve_qr(r, J, damping)
+            if cfg.use_jacobi_scaling:
+                dx = dx * scale
+            return dx, g, cost, scale, None
+
+        return solve_qr
 
     def _make_step_fn(self, cp: CompiledProblem):
         cfg = self.config

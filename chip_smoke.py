@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's bundle-adjustment and SE3 pose-graph paths once
-on one CUDA card.
+"""Drive the PyTorch port's bundle-adjustment and pose-graph paths (SE3,
+SE2, the robust-loss sweep with a prior, the dense solvers) once on one
+CUDA card.
 
 Run from the repository root: ``python3 chip_smoke.py``. Phases, in order,
 each printing one JSON line; any failure raises and exits non-zero:
@@ -31,11 +32,29 @@ each printing one JSON line; any failure raises and exits non-zero:
    apart, the second runs under ``torch.profiler`` for the device busy
    share, the device events per LM iteration, the top device ops and the
    device time of the ``banded.*``/``cr.*``/``lm.*`` spans, and the third
-   is the timed one. The pose-graph path has no kernel of its own (the TPU
-   reference had none there).
+   is the timed one;
+8. SE2 parity: ``tests/fixtures/medium_se2_300.g2o`` in f64 through
+   ``sparse_cholesky``, ``dense_cholesky`` and ``dense_qr``, on the card
+   and on the CPU: each reaches the certified 5.668402411723587e-02 (rtol
+   1e-8) in 9 LM iterations;
+9. SE2 full: the M3500-shaped graph (``synthetic_pose_graph_2d(3500,
+   "manhattan", loop_stride=2, seed=0)``, bench.py's m3500 rung) as phase
+   7, f64 then f32, gated on convergence with more than 95% reduction and
+   in f64 on the JAX package's 970.2833556685312 -> 0.6377173960659416 in
+   6 iterations; then one f64 ``dense_cholesky`` solve of it (a dense H of
+   10,500^2 entries), converged and within rtol 1e-6 of the banded cost;
+10. robust sweep: the parking-garage-shaped SE3 graph (1,661 poses, 30
+    rings, closures 1-3 rings apart) with each of the JAX package's 10
+    sweep losses on every edge and a ``ManifoldPriorFactor`` on the first
+    pose, f64, ``sparse_cholesky``: converged with the final cost below
+    0.6x the initial; L2, Huber(1.0) and Cauchy(1.0) also at the JAX
+    package's constants in 4 iterations.
 
-Then the kernel summary line, and last ``{"ok": true, "device": {...}}``.
-It needs one card, and refuses to run without one.
+The pose-graph paths launch no kernel of the port's own (the TPU reference
+ran them in XLA, outside Pallas): the landmark-block kernel, the one hand
+kernel, runs on the BA path only. Then the kernel summary line, and last
+``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
+without one.
 """
 
 import json
@@ -253,7 +272,17 @@ def phase_full_slice():
 # tests/test_medium_fixture.py's certified optimum and the JAX package's
 # sphere2500 result (f64, python mode; bench.py's configuration)
 MEDIUM_SE3 = ("tests/fixtures/medium_se3_250.g2o", 5.132992631561506e-01, 6)
+MEDIUM_SE2 = ("tests/fixtures/medium_se2_300.g2o", 5.668402411723587e-02, 9)
 SPHERE_INITIAL, SPHERE_FINAL, SPHERE_ITERATIONS = 1830.5367061422921, 8.594121916326808, 4
+# the JAX package on a CPU, f64, python mode, bench.py's settings: the
+# M3500-shaped graph and the parking-garage-shaped sweep (initial, final)
+M3500_INITIAL, M3500_FINAL, M3500_ITERATIONS = 970.2833556685312, 0.6377173960659416, 6
+SWEEP = [("l2", ()), ("huber", (1.0,)), ("cauchy", (1.0,)), ("fair", (1.3998,)),
+         ("geman_mcclure", (1.0,)), ("welsch", (2.9846,)), ("tukey_biweight", (4.6851,)),
+         ("trimmed_mean", (2.0,)), ("barron_general", (-2.0, 1.0)), ("t_distribution", (5.0,))]
+SWEEP_COSTS = {"l2": (6145.86441008718, 16.063378445855403),
+               "huber": (3246.84568247429, 16.063378445809057),
+               "cauchy": (1390.0683695360126, 15.935114237585939)}
 PROFILE_SPANS = ("banded.linearize", "banded.assemble", "cr.eliminate", "cr.dense_fold",
                  "cr.back_substitute", "cr.residual", "cr.refine", "cr.retry", "lm.trial_cost")
 
@@ -284,11 +313,11 @@ def phase_pose_graph_parity():
               rel_diff_cpu=abs(rh.final_cost - certified) / certified))
 
 
-def profile_solve(solve, iterations):
+def profile_solve(solve):
     """One solve under torch.profiler: wall seconds, device busy seconds
     (the sum of device events: kernels, copies, sets; one stream, so they do
-    not overlap), device events per LM iteration, the top device ops and the
-    spans' device and host time."""
+    not overlap), this solve's LM iterations and device events per LM
+    iteration, the top device ops and the spans' device and host time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -296,7 +325,7 @@ def profile_solve(solve, iterations):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve()
+        iterations = solve().iterations
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.events()
@@ -316,16 +345,75 @@ def profile_solve(solve, iterations):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return dict(wall_seconds=wall, device_busy_seconds=busy_us / 1e6,
                 device_idle_share=1.0 - busy_us / 1e6 / wall,
-                device_events=len(device), device_events_per_lm_iteration=len(device) / iterations,
+                iterations=iterations, device_events=len(device),
+                device_events_per_lm_iteration=len(device) / iterations,
                 top_device_ops_ms=[[name[:90], us / 1e3] for name, us in top], spans=spans)
+
+
+def solve_three_times(lm, cp):
+    """The first solve (plan, library warm-up), a solve under the profiler,
+    and the timed solve: (result, [first s, timed s], profile, peak device
+    memory of the timed solve)."""
+    import torch
+
+    timed = []
+    for k in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if k == 1:
+            profiled = profile_solve(lambda: lm.optimize(cp))
+            continue
+        t0 = time.perf_counter()
+        res = lm.optimize(cp)
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+    return res, timed, profiled, torch.cuda.max_memory_allocated()
+
+
+def banded_full(phase, graph, problem, dtype):
+    """One dtype of a banded pose-graph phase: LM ``sparse_cholesky``,
+    ``damping="auto"``, ``cost_tolerance=1e-4``, solved three times; emits
+    the phase's line and returns the result."""
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.linalg import banded
+
+    name = str(dtype).replace("torch.", "")
+    t0 = time.perf_counter()
+    cp = problem.compile(dtype=dtype, device="cuda")
+    compile_s = time.perf_counter() - t0
+    W = banded.block_bandwidth(cp)
+    core = banded.make_blocktri_cr_core(cp.total_dof, banded.default_panel(W), dtype)
+    lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+        linear_solver_type="sparse_cholesky", max_iterations=100, cost_tolerance=1e-4,
+        damping="auto"))
+    res, timed, profiled, peak = solve_three_times(lm, cp)
+    emit(dict(phase=phase, dtype=name, D=cp.total_dof, W=W, m=core.block,
+              n=core.n_blocks, levels=core.levels, edges=graph.num_edges,
+              status=res.status.name, iterations=res.iterations,
+              initial_cost=res.initial_cost, final_cost=res.final_cost,
+              compile_seconds=compile_s, first_solve_seconds=timed[0],
+              solve_seconds=timed[1], seconds_per_lm_iteration=timed[1] / res.iterations,
+              max_memory_allocated=peak, profile=profiled))
+    return res
+
+
+def check_costs(label, res, initial, final, iterations):
+    """The JAX package's f64 constants: initial cost rtol 1e-10, final rtol
+    1e-8, the iterations, and COST_TOLERANCE_REACHED."""
+    import numpy as np
+
+    np.testing.assert_allclose(res.initial_cost, initial, rtol=1e-10, err_msg=label)
+    np.testing.assert_allclose(res.final_cost, final, rtol=1e-8, err_msg=label)
+    if (res.iterations, res.status.name) != (iterations, "COST_TOLERANCE_REACHED"):
+        raise AssertionError(f"{label}: {res.summary()}, expected {iterations} iterations")
 
 
 def phase_pose_graph_full():
     import torch
 
-    import apex_tpu_torch as apx
     from apex_tpu_torch.io import synthetic
-    from apex_tpu_torch.linalg import banded
 
     t0 = time.perf_counter()
     graph = synthetic.synthetic_pose_graph_3d(n_poses=2500, rings=50, seed=0)
@@ -333,45 +421,134 @@ def phase_pose_graph_full():
     emit(dict(phase="pose_graph_build", poses=graph.num_vertices, edges=graph.num_edges,
               seconds=time.perf_counter() - t0))
     for dtype in (torch.float64, torch.float32):
-        name = str(dtype).replace("torch.", "")
+        res = banded_full("pose_graph_full", graph, problem, dtype)
+        if not (res.converged and 1.0 - res.final_cost / res.initial_cost > 0.99):
+            raise AssertionError(f"{dtype}: {res.summary()} misses the 99% gate")
+        if dtype == torch.float64:
+            check_costs("sphere f64", res, SPHERE_INITIAL, SPHERE_FINAL, SPHERE_ITERATIONS)
+
+
+def phase_se2_parity():
+    """The certified SE2 fixture through the three solvers, on the card and
+    on the CPU."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+
+    fname, certified, iterations = MEDIUM_SE2
+    problem = apx.load_g2o(os.path.join(REPO, fname)).to_problem()
+    for solver in ("sparse_cholesky", "dense_cholesky", "dense_qr"):
+        results = {}
+        for device in ("cuda", "cpu"):
+            cfg = apx.LevenbergMarquardtConfig(
+                linear_solver_type=solver, max_iterations=100, cost_tolerance=1e-10,
+                parameter_tolerance=1e-14, gradient_tolerance=1e-14)
+            results[device] = apx.LevenbergMarquardt(cfg).optimize(
+                problem.compile(dtype=torch.float64, device=device))
+        for device, r in results.items():
+            if not (r.converged and r.iterations == iterations):
+                raise AssertionError(
+                    f"{solver} {device}: {r.summary()}, expected {iterations} iterations")
+            np.testing.assert_allclose(r.final_cost, certified, rtol=1e-8)
+        rc, rh = results["cuda"], results["cpu"]
+        emit(dict(phase="se2_parity", file=fname, solver=solver, iterations=rc.iterations,
+                  status=rc.status.name, cost_cuda=rc.final_cost, cost_cpu=rh.final_cost,
+                  certified=certified,
+                  rel_diff_cuda=abs(rc.final_cost - certified) / certified,
+                  rel_diff_cpu=abs(rh.final_cost - certified) / certified))
+
+
+def phase_se2_full():
+    """The M3500-shaped SE2 graph through sparse_cholesky in f64 and f32,
+    then one f64 dense_cholesky solve of it (a dense H of D^2 entries)."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.io import synthetic
+
+    t0 = time.perf_counter()
+    graph = synthetic.synthetic_pose_graph_2d(n_poses=3500, trajectory="manhattan",
+                                              loop_stride=2, seed=0)
+    problem = graph.to_problem()
+    emit(dict(phase="se2_build", poses=graph.num_vertices, edges=graph.num_edges,
+              seconds=time.perf_counter() - t0))
+    banded_res = {}
+    for dtype in (torch.float64, torch.float32):
+        res = banded_res[dtype] = banded_full("se2_full", graph, problem, dtype)
+        if not (res.converged and 1.0 - res.final_cost / res.initial_cost > 0.95):
+            raise AssertionError(f"{dtype}: {res.summary()} misses the 95% gate")
+        if dtype == torch.float64:
+            check_costs("m3500 f64", res, M3500_INITIAL, M3500_FINAL, M3500_ITERATIONS)
+
+    cp = problem.compile(dtype=torch.float64, device="cuda")
+    lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+        linear_solver_type="dense_cholesky", max_iterations=100, cost_tolerance=1e-4,
+        damping="auto"))
+    timed = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        cp = problem.compile(dtype=dtype, device="cuda")
-        compile_s = time.perf_counter() - t0
-        W = banded.block_bandwidth(cp)
-        core = banded.make_blocktri_cr_core(cp.total_dof, banded.default_panel(W), dtype)
-        lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
-            linear_solver_type="sparse_cholesky", max_iterations=100, cost_tolerance=1e-4,
-            damping="auto"))
+        res = lm.optimize(cp)
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+    sparse = banded_res[torch.float64]
+    emit(dict(phase="se2_dense", dtype="float64", D=cp.total_dof, status=res.status.name,
+              iterations=res.iterations, initial_cost=res.initial_cost,
+              final_cost=res.final_cost, first_solve_seconds=timed[0], solve_seconds=timed[1],
+              seconds_per_lm_iteration=timed[1] / res.iterations,
+              max_memory_allocated=torch.cuda.max_memory_allocated(),
+              sparse_final_cost=sparse.final_cost, sparse_iterations=sparse.iterations,
+              rel_diff_to_sparse=abs(res.final_cost - sparse.final_cost) / sparse.final_cost))
+    if not res.converged:
+        raise AssertionError(f"dense f64: {res.summary()}")
+    np.testing.assert_allclose(res.final_cost, sparse.final_cost, rtol=1e-6)
+
+
+def phase_robust_sweep():
+    """The parking-garage-shaped SE3 graph with each of the 10 losses of the
+    JAX package's sweep on every edge and a ManifoldPriorFactor on the first
+    pose, f64, sparse_cholesky: converged with the final cost below 0.6x
+    the initial; L2, Huber(1.0) and Cauchy(1.0) also at the JAX package's
+    constants."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.core import losses
+    from apex_tpu_torch.io import synthetic
+
+    t0 = time.perf_counter()
+    graph = synthetic.synthetic_pose_graph_3d(n_poses=1661, rings=30, seed=0,
+                                              closure_strides=(1, 2, 3))
+    first = sorted(graph.vertices_se3)[0]
+    anchor = np.asarray(graph.vertices_se3[first])
+    emit(dict(phase="robust_sweep_build", poses=graph.num_vertices, edges=graph.num_edges,
+              seconds=time.perf_counter() - t0))
+    lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+        linear_solver_type="sparse_cholesky", max_iterations=100, cost_tolerance=1e-4,
+        damping="auto"))
+    for name, args in SWEEP:
+        problem = graph.to_problem(loss=losses.LOSS_BY_NAME[name](*args))
+        problem.add_residual_block([f"x{first}"], apx.ManifoldPriorFactor("SE3", anchor))
+        cp = problem.compile(dtype=torch.float64, device="cuda")
         timed = []
-        for k in range(3):
+        for _ in range(2):
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            if k == 1:
-                profiled = profile_solve(lambda: lm.optimize(cp), res.iterations)
-                continue
             t0 = time.perf_counter()
             res = lm.optimize(cp)
             torch.cuda.synchronize()
             timed.append(time.perf_counter() - t0)
-        out = dict(phase="pose_graph_full", dtype=name, D=cp.total_dof, W=W, m=core.block,
-                   n=core.n_blocks, levels=core.levels, edges=cp.total_residual_dim // 6,
-                   status=res.status.name, iterations=res.iterations,
-                   initial_cost=res.initial_cost, final_cost=res.final_cost,
-                   compile_seconds=compile_s, first_solve_seconds=timed[0],
-                   solve_seconds=timed[1], seconds_per_lm_iteration=timed[1] / res.iterations,
-                   max_memory_allocated=torch.cuda.max_memory_allocated(),
-                   profile=profiled)
-        emit(out)
-        reduction = 1.0 - res.final_cost / res.initial_cost
-        if not (res.converged and reduction > 0.99):
-            raise AssertionError(f"{name}: {res.summary()} misses the 99% gate")
-        if dtype == torch.float64:
-            import numpy as np
-
-            np.testing.assert_allclose(res.initial_cost, SPHERE_INITIAL, rtol=1e-10)
-            np.testing.assert_allclose(res.final_cost, SPHERE_FINAL, rtol=1e-8)
-            if (res.iterations, res.status.name) != (SPHERE_ITERATIONS, "COST_TOLERANCE_REACHED"):
-                raise AssertionError(f"f64: {res.summary()}, expected 4 iterations")
+        emit(dict(phase="robust_sweep", loss=name, params=list(args), D=cp.total_dof,
+                  status=res.status.name, iterations=res.iterations,
+                  initial_cost=res.initial_cost, final_cost=res.final_cost,
+                  first_solve_seconds=timed[0], solve_seconds=timed[1]))
+        if not (res.converged and res.final_cost < 0.6 * res.initial_cost):
+            raise AssertionError(f"{name}: {res.summary()} misses the JAX test's gate")
+        if name in SWEEP_COSTS:
+            check_costs(name, res, *SWEEP_COSTS[name], 4)
 
 
 def main():
@@ -406,6 +583,9 @@ def main():
     launches, iterations = phase_full_slice()
     phase_pose_graph_parity()
     phase_pose_graph_full()
+    phase_se2_parity()
+    phase_se2_full()
+    phase_robust_sweep()
 
     main_shape = measured[(65_132, torch.float64)]
     emit({"kernels": [{

@@ -136,7 +136,7 @@ def test_entry_points_default_to_the_card(small_ba):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(linear_solver_type="dense_cholesky"), "ROADMAP A.3"),
+    (dict(linear_solver_type="sparse_general"), "ROADMAP A.6"),
     (dict(linear_solver_type="schur_explicit"), "ROADMAP A.3"),
     (dict(linear_solver_type="schur_implicit", mode="jit"), "ROADMAP A.8"),
 ])
@@ -147,12 +147,12 @@ def test_not_ported_paths_raise(small_ba, change, match):
 
 
 def test_other_losses_not_ported():
-    from apex_tpu_torch.core.losses import Loss, loss_by_name
+    """The loss menu is ported (ROADMAP A.4): the CLIs' names build the
+    constructors' losses."""
+    from apex_tpu_torch.core.losses import CauchyLoss, Loss, TukeyBiweightLoss, loss_by_name
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        loss_by_name("cauchy", 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        Loss("tukey_biweight", (4.0,))
+    assert loss_by_name("cauchy", 1.0) == CauchyLoss(1.0)
+    assert Loss("tukey_biweight", (4.0,)) == TukeyBiweightLoss(4.0)
 
 
 def test_tf32_off_after_import():

@@ -198,3 +198,65 @@ def test_failed_cholesky_is_nan_on_the_card(card):
     assert torch.isnan(L[1]).all()
     torch.testing.assert_close(L[0], eye * 2.0 ** 0.5)
     torch.testing.assert_close(L[2], L[0])
+
+
+# -- SE2, the loss menu and the dense tier -------------------------------------
+
+
+@pytest.mark.parametrize("solver", ["sparse_cholesky", "dense_cholesky", "dense_qr"])
+def test_medium_se2_on_the_card(card, solver):
+    """tests/test_medium_fixture.py's certified SE2 optimum in 9 LM
+    iterations on the card, as on the CPU."""
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "fixtures" / "medium_se2_300.g2o"
+    cfg = apx.LevenbergMarquardtConfig(
+        linear_solver_type=solver, max_iterations=100, cost_tolerance=1e-10,
+        parameter_tolerance=1e-14, gradient_tolerance=1e-14)
+    problem = apx.load_g2o(path).to_problem()
+    rc = apx.LevenbergMarquardt(cfg).optimize(problem.compile(device=card))
+    rh = apx.LevenbergMarquardt(cfg).optimize(problem.compile(device="cpu"))
+    assert rc.converged and rc.iterations == rh.iterations == 9 and rc.status == rh.status
+    np.testing.assert_allclose(rc.final_cost, 5.668402411723587e-02, rtol=1e-8)
+    np.testing.assert_allclose(rc.final_cost, rh.final_cost, rtol=1e-8)
+
+
+def test_losses_card_match_cpu(card):
+    """Every loss kernel on the card against the CPU in f64 (rtol 1e-13),
+    over a grid of s from 0 to 1e6."""
+    from apex_tpu_torch.core import losses
+
+    s = torch.cat([torch.tensor([0.0, 1e-300], dtype=torch.float64),
+                   10.0 ** torch.linspace(-12, 6, 61, dtype=torch.float64)])
+    for name, make in losses.LOSS_BY_NAME.items():
+        loss = make()
+        for part, c, h in zip(("rho", "rho'", "rho''"), loss.evaluate(s.to(card)),
+                              loss.evaluate(s)):
+            assert c.device.type == "cuda"
+            torch.testing.assert_close(c.cpu(), h, rtol=1e-13, atol=1e-13 * float(h.abs().max()),
+                                       msg=f"{name} {part}")
+
+
+def _dense_spd(D, seed, shift_to_indefinite=False):
+    A = np.random.default_rng(seed).normal(size=(D, D))
+    A = A @ A.T + D * np.eye(D)
+    if shift_to_indefinite:  # the retry ladder's fifth shift rescues it
+        lam = np.linalg.eigvalsh(A)[0]
+        A = A - (lam + 1e-3 * (np.trace(A) / D - lam)) * np.eye(D)
+    return torch.from_numpy(A)
+
+
+@pytest.mark.parametrize("kind", ["spd", "indefinite"])
+def test_dense_solvers_card_match_cpu(card, kind):
+    from apex_tpu_torch.linalg import dense
+
+    H = _dense_spd(300, 3, kind == "indefinite")
+    g = torch.from_numpy(np.random.default_rng(4).normal(size=300))
+    x_card = dense.solve_cholesky_with_retry(H.to(card), g.to(card), 0.5).cpu()
+    x_cpu = dense.solve_cholesky_with_retry(H, g, 0.5)
+    assert torch.isfinite(x_card).all()
+    assert (x_card - x_cpu).abs().max() <= 1e-9 * x_cpu.abs().max()
+    J = torch.from_numpy(np.random.default_rng(6).normal(size=(900, 300)))
+    q_card = dense.solve_qr(g.new_ones(900).to(card), J.to(card), 1e-3).cpu()
+    q_cpu = dense.solve_qr(g.new_ones(900), J, 1e-3)
+    assert (q_card - q_cpu).abs().max() <= 1e-12 * q_cpu.abs().max()

@@ -1,29 +1,35 @@
-"""SO3/SE3 of the PyTorch port against apex_tpu.manifolds (f64, atol 1e-12),
-small-angle branches included. Inputs are numpy arrays from a seed, handed
-to both packages."""
+"""SO2/SE2/SO3/SE3 of the PyTorch port against apex_tpu.manifolds (f64,
+atol 1e-12), small-angle branches included. Inputs are numpy arrays from a
+seed, handed to both packages."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from apex_tpu.manifolds import SE2 as JSE2
 from apex_tpu.manifolds import SE3 as JSE3
+from apex_tpu.manifolds import SO2 as JSO2
 from apex_tpu.manifolds import SO3 as JSO3
 from apex_tpu.manifolds import utils as jutils
-from apex_tpu_torch.manifolds import SE3, SO3, get
+from apex_tpu_torch.manifolds import SE2, SE3, SO2, SO3, get
 from apex_tpu_torch.manifolds import utils as tutils
 
 ATOL = 1e-12
+# the rotation part is the last ROT[name] tangent entries; act takes
+# vectors of that many entries (3 in 3D, 2 in 2D)
+ROT = {"SO3": 3, "SE3": 3, "SO2": 1, "SE2": 1}
+ACT_DIM = {"SO3": 3, "SE3": 3, "SO2": 2, "SE2": 2}
 
 
-def _tangent(n, dof, seed, scale):
+def _tangent(n, dof, seed, scale, rot=3):
     rng = np.random.default_rng(seed)
     t = rng.normal(size=(n, dof))
     if scale == "small":
         # below and around the 1e-10 theta^2 switch
-        t[:, -3:] *= 10.0 ** rng.uniform(-9, -4, size=(n, 1))
+        t[:, -rot:] *= 10.0 ** rng.uniform(-9, -4, size=(n, 1))
     elif scale == "zero":
-        t[:, -3:] = 0.0
+        t[:, -rot:] = 0.0
     return t
 
 
@@ -31,14 +37,15 @@ def _close(t_out, j_out):
     np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=0, atol=ATOL)
 
 
-GROUPS = [("SO3", SO3, JSO3, 3), ("SE3", SE3, JSE3, 6)]
+GROUPS = [("SO3", SO3, JSO3, 3), ("SE3", SE3, JSE3, 6), ("SO2", SO2, JSO2, 1),
+          ("SE2", SE2, JSE2, 3)]
 SCALES = ["large", "small", "zero"]
 
 
 @pytest.mark.parametrize("scale", SCALES)
 @pytest.mark.parametrize("name,tg,jg,dof", GROUPS)
 def test_exp_log(name, tg, jg, dof, scale):
-    t = _tangent(64, dof, seed=1, scale=scale)
+    t = _tangent(64, dof, seed=1, scale=scale, rot=ROT[name])
     _close(tg.exp(torch.from_numpy(t)), jg.exp(jnp.asarray(t)))
     x = np.array(jg.exp(jnp.asarray(t)))
     _close(tg.log(torch.from_numpy(x)), jg.log(jnp.asarray(x)))
@@ -47,23 +54,28 @@ def test_exp_log(name, tg, jg, dof, scale):
 @pytest.mark.parametrize("scale", SCALES)
 @pytest.mark.parametrize("name,tg,jg,dof", GROUPS)
 def test_compose_plus_normalize(name, tg, jg, dof, scale):
-    a = np.array(jg.exp(jnp.asarray(_tangent(32, dof, seed=2, scale="large"))))
-    b = np.array(jg.exp(jnp.asarray(_tangent(32, dof, seed=3, scale=scale))))
-    d = _tangent(32, dof, seed=4, scale=scale)
+    rot = ROT[name]
+    a = np.array(jg.exp(jnp.asarray(_tangent(32, dof, seed=2, scale="large", rot=rot))))
+    b = np.array(jg.exp(jnp.asarray(_tangent(32, dof, seed=3, scale=scale, rot=rot))))
+    d = _tangent(32, dof, seed=4, scale=scale, rot=rot)
     _close(tg.compose(torch.from_numpy(a), torch.from_numpy(b)),
            jg.compose(jnp.asarray(a), jnp.asarray(b)))
     _close(tg.plus(torch.from_numpy(a), torch.from_numpy(d)),
            jg.plus(jnp.asarray(a), jnp.asarray(d)))
-    # off-unit quaternions with both signs of w
+    # off-unit quaternions with both signs of w; 2D angles out to 4 pi
     raw = a * np.random.default_rng(5).uniform(0.5, 2.0, size=(32, 1))
     raw[::2, -4:] *= -1.0
-    _close(tg.normalize(torch.from_numpy(raw)), jg.normalize(jnp.asarray(raw)))
+    if rot == 1:
+        raw[:, -1] *= 2.0
+    t_raw = torch.from_numpy(raw)
+    _close(tg.normalize(t_raw), jg.normalize(jnp.asarray(raw)))
+    np.testing.assert_array_equal(t_raw.numpy(), raw)  # the input is left as it was
 
 
 @pytest.mark.parametrize("name,tg,jg,dof", GROUPS)
 def test_act_inverse(name, tg, jg, dof):
-    x = np.array(jg.exp(jnp.asarray(_tangent(16, dof, seed=6, scale="large"))))
-    v = np.random.default_rng(7).normal(size=(16, 3))
+    x = np.array(jg.exp(jnp.asarray(_tangent(16, dof, seed=6, scale="large", rot=ROT[name]))))
+    v = np.random.default_rng(7).normal(size=(16, ACT_DIM[name]))
     _close(tg.act(torch.from_numpy(x), torch.from_numpy(v)),
            jg.act(jnp.asarray(x), jnp.asarray(v)))
     _close(tg.inverse(torch.from_numpy(x)), jg.inverse(jnp.asarray(x)))
@@ -88,22 +100,23 @@ def test_mat_to_quat_every_pivot():
 
 def test_registry():
     assert get("SE3") is SE3 and get("SO3") is SO3
+    assert get("SE2") is SE2 and get("SO2") is SO2
     assert get("R3").dof == 3 and get("R3").storage_dim == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get("SE2")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+        get("Sim3")
 
 
-def _tangent_at(n, dof, seed, angle):
-    """Random tangents whose rotation part has norm ``angle`` (None: as
-    drawn)."""
+def _tangent_at(n, dof, seed, angle, rot=3):
+    """Random tangents whose rotation part (the last ``rot`` entries) has
+    norm ``angle`` (None: as drawn)."""
     t = np.random.default_rng(seed).normal(size=(n, dof))
     if angle is not None:
-        rot = t[:, -3:]
-        t[:, -3:] = rot / np.linalg.norm(rot, axis=1, keepdims=True) * angle
+        r = t[:, -rot:]
+        t[:, -rot:] = r / np.linalg.norm(r, axis=1, keepdims=True) * angle
     return t
 
 
-ANGLES = {"random": None, "tiny": 1e-9, "near_pi": np.pi - 1e-6}
+ANGLES = {"random": None, "tiny": 1e-9, "near_pi": np.pi - 1e-6, "zero": 0.0}
 JAC_RTOL = 1e-12
 
 
@@ -115,7 +128,7 @@ def _close_rel(t_out, j_out):
 @pytest.mark.parametrize("name,tg,jg,dof", GROUPS)
 @pytest.mark.parametrize("fn", ["rjac", "ljac", "rjac_inv", "ljac_inv"])
 def test_tangent_jacobians(fn, name, tg, jg, dof, angle):
-    t = _tangent_at(16, dof, seed=21, angle=ANGLES[angle])
+    t = _tangent_at(16, dof, seed=21, angle=ANGLES[angle], rot=ROT[name])
     _close_rel(getattr(tg, fn)(torch.from_numpy(t)), getattr(jg, fn)(jnp.asarray(t)))
 
 
@@ -124,8 +137,10 @@ def test_tangent_jacobians(fn, name, tg, jg, dof, angle):
 def test_adjoint_and_derived_jacobians(name, tg, jg, dof, angle):
     """adjoint, between_j, compose_j and log_j: every output of the
     port's against the JAX package's."""
-    a = np.array(jg.exp(jnp.asarray(_tangent_at(16, dof, seed=22, angle=None))))
-    b = np.array(jg.exp(jnp.asarray(_tangent_at(16, dof, seed=23, angle=ANGLES[angle]))))
+    rot = ROT[name]
+    a = np.array(jg.exp(jnp.asarray(_tangent_at(16, dof, seed=22, angle=None, rot=rot))))
+    b = np.array(jg.exp(jnp.asarray(_tangent_at(16, dof, seed=23, angle=ANGLES[angle],
+                                                 rot=rot))))
     # between(a, a∘b) = b, so the between and minus Jacobians see the angle
     ab = np.array(jg.compose(jnp.asarray(a), jnp.asarray(b)))
     ta, tb, tab = (torch.from_numpy(v) for v in (a, b, ab))
@@ -143,7 +158,7 @@ def test_adjoint_and_derived_jacobians(name, tg, jg, dof, angle):
 
 @pytest.mark.parametrize("name,tg,jg,dof", GROUPS)
 def test_inverse_and_exp_jacobians(name, tg, jg, dof):
-    t = _tangent_at(16, dof, seed=24, angle=None)
+    t = _tangent_at(16, dof, seed=24, angle=None, rot=ROT[name])
     x = np.array(jg.exp(jnp.asarray(t)))
     for t_out, j_out in zip(tg.inverse_j(torch.from_numpy(x)), jg.inverse_j(jnp.asarray(x))):
         _close_rel(t_out, j_out)

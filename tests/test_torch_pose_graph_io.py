@@ -1,5 +1,6 @@
-"""Pose-graph I/O of the PyTorch port against apex_tpu: the G2O reader and
-writer, chi^2, the graph-to-problem build and the synthetic sphere."""
+"""Pose-graph I/O of the PyTorch port against apex_tpu: the G2O and TORO
+readers and writers, chi^2, the graph-to-problem build and the synthetic
+sphere, ring and manhattan graphs."""
 
 from pathlib import Path
 
@@ -7,8 +8,9 @@ import numpy as np
 import pytest
 
 from apex_tpu.io import load_g2o as jax_load_g2o
+from apex_tpu.io import load_toro as jax_load_toro
 from apex_tpu.io import synthetic as jax_synthetic
-from apex_tpu_torch.io import Graph, load_g2o, save_g2o, synthetic
+from apex_tpu_torch.io import Graph, load_g2o, load_toro, save_g2o, save_toro, synthetic
 from apex_tpu_torch.io.graph import full_to_upper_tri, upper_tri_to_full
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures"
@@ -107,3 +109,49 @@ def test_to_problem_matches_apex_tpu():
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
         np.testing.assert_array_equal(gt.data["meas"].numpy(), np.asarray(gj.data["meas"]))
     np.testing.assert_array_equal(ct.pools[0].free_mask.numpy(), np.asarray(cj.pools[0].free_mask))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_poses=100, trajectory="ring", seed=1),
+    dict(n_poses=150, trajectory="manhattan", loop_stride=10, seed=3),
+    dict(n_poses=300, trajectory="manhattan", loop_stride=2, seed=0),
+], ids=["ring", "manhattan_loops", "manhattan_m3500_stride"])
+def test_synthetic_se2_matches_apex_tpu(kw):
+    """The same draws in the same order (manhattan: the turns, then the
+    noise): measurements and the integrated vertices within 1e-10 of the
+    largest coordinate."""
+    t, j = synthetic.synthetic_pose_graph_2d(**kw), jax_synthetic.synthetic_pose_graph_2d(**kw)
+    assert (t.num_vertices, t.num_edges, t.is_se3) == (j.num_vertices, j.num_edges, False)
+    n = kw["n_poses"]
+    vt = np.stack([t.vertices_se2[i] for i in range(n)])
+    vj = np.stack([j.vertices_se2[i] for i in range(n)])
+    np.testing.assert_allclose(vt, vj, rtol=0, atol=1e-10 * np.abs(vj).max())
+    mt = np.stack([e.measurement for e in t.edges_se2])
+    mj = np.stack([e.measurement for e in j.edges_se2])
+    np.testing.assert_allclose(mt, mj, rtol=0, atol=1e-10 * np.abs(mj).max())
+    assert [(e.frm, e.to) for e in t.edges_se2] == [(e.frm, e.to) for e in j.edges_se2]
+    for te, je in zip(t.edges_se2, j.edges_se2):
+        np.testing.assert_array_equal(te.information, je.information)
+    np.testing.assert_allclose(t.chi2(), j.chi2(), rtol=1e-10)
+    with pytest.raises(ValueError, match="trajectory"):
+        synthetic.synthetic_pose_graph_2d(n_poses=10, trajectory="spiral")
+
+
+def test_load_toro_matches_apex_tpu(tmp_path):
+    """TORO's information order I11 I12 I22 I33 I13 I23 unscrambled as the
+    JAX package does; the writer round-trips; SE3 graphs are refused."""
+    path = FIXTURES / "toro_excerpt.graph"
+    t, j = load_toro(path), jax_load_toro(path)
+    assert (t.num_vertices, t.num_edges) == (j.num_vertices, j.num_edges) == (14, 15)
+    _assert_graphs_equal(t, j)
+    np.testing.assert_array_equal(t.edges_se2[0].information,
+                                  load_g2o(FIXTURES / "intel_excerpt.g2o").edges_se2[0].information)
+    out = tmp_path / "roundtrip.toro"
+    save_toro(out, t)
+    _assert_graphs_equal(load_toro(out), t)
+    with pytest.raises(ValueError, match="SE2"):
+        save_toro(tmp_path / "se3.toro", load_g2o(FIXTURES / "sphere_excerpt.g2o"))
+    bad = tmp_path / "bad.graph"
+    bad.write_text("EDGE2 0 1 1.0 0.0\n")
+    with pytest.raises(ValueError, match="malformed"):
+        load_toro(bad)
