@@ -3,20 +3,23 @@ same flags and report table).
 
 It takes G2O files (SE2 or SE3) and TORO files (by the suffix ``.toro`` or
 ``.graph``), the synthetic ``ring``, ``manhattan`` (SE2) and ``sphere``
-(SE3) graphs, every loss of ``LOSS_BY_NAME``, and the linear solvers
-``sparse_cholesky``, ``dense_cholesky`` and ``dense_qr``. ``--platform``
-picks the torch device: ``cuda`` (default) or ``cpu``. Asking for ``cuda``
-on a machine without a card raises. ``--profile`` writes a
-``torch.profiler`` trace of the solve. Not ported yet, and raising
-``NotImplementedError`` with their ROADMAP item: ``--optimizer gn``, ``dl``
-and ``all`` (A.5), ``--linear-solver sparse_qr``, ``sparse_general`` and
-``pcg`` (A.6), ``--dataset`` (A.10) and ``--jit`` (A.8).
+(SE3) graphs, every loss of ``LOSS_BY_NAME``, the optimizers ``lm``, ``gn``
+and ``dl`` (``all`` runs the three and prints one row each), and the linear
+solvers ``sparse_cholesky``, ``sparse_qr``, ``dense_cholesky``, ``dense_qr``
+and ``pcg`` (DogLeg, which has no ``pcg``, takes ``sparse_cholesky``
+instead). ``--platform`` picks the torch device: ``cuda`` (default) or
+``cpu``. Asking for ``cuda`` on a machine without a card raises.
+``--profile`` writes a ``torch.profiler`` trace of the last solve. Not
+ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
+``--linear-solver sparse_general`` (A.6), ``--dataset`` (A.10) and ``--jit``
+(A.8).
 
 Usage:
     python -m apex_tpu_torch.cli.pose_graph --file graph.g2o
     python -m apex_tpu_torch.cli.pose_graph --synthetic sphere --poses 2500
     python -m apex_tpu_torch.cli.pose_graph --synthetic manhattan --poses 3500
     python -m apex_tpu_torch.cli.pose_graph --file graph.toro --loss cauchy --platform cpu
+    python -m apex_tpu_torch.cli.pose_graph --file graph.g2o --optimizer all --platform cpu
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ def build_parser():
         "--linear-solver", default="sparse_cholesky",
         choices=["sparse_cholesky", "sparse_qr", "sparse_general",
                  "dense_cholesky", "dense_qr", "pcg"],
-        help="linear solver tier (the port has sparse_cholesky, dense_cholesky, dense_qr)")
+        help="linear solver tier (sparse_* ride the band; dense tiers for small "
+             "problems; sparse_general is not ported)")
     p.add_argument("--max-iterations", type=int, default=100)
     p.add_argument("--cost-tolerance", type=float, default=1e-4)
     p.add_argument("--fix-first", action="store_true", help="fix the first vertex")
@@ -86,61 +90,70 @@ def make_loss(args):
     return loss_by_name(args.loss, args.loss_scale)
 
 
+def make_solver(kind, args):
+    import apex_tpu_torch as apx
+
+    common = dict(max_iterations=args.max_iterations, cost_tolerance=args.cost_tolerance,
+                  mode="jit" if args.jit else "python", verbose=args.verbose)
+    if kind == "lm":
+        return apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+            linear_solver_type=args.linear_solver, **common))
+    if kind == "gn":
+        return apx.GaussNewton(apx.GaussNewtonConfig(
+            linear_solver_type=args.linear_solver, **common))
+    dl_solver = args.linear_solver
+    if dl_solver in ("sparse_general", "pcg"):  # not in DogLeg's menu
+        dl_solver = "sparse_cholesky"
+    return apx.DogLeg(apx.DogLegConfig(linear_solver_type=dl_solver, **common))
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
     import torch
 
-    import apex_tpu_torch as apx
     from apex_tpu_torch.device import resolve_device
     from apex_tpu_torch.io import save_g2o
 
     device = resolve_device(args.platform)
-    if args.optimizer != "lm":
-        raise NotImplementedError(
-            f"--optimizer {args.optimizer}: Gauss-Newton and DogLeg are not ported yet "
-            "(ROADMAP A.5); the port has lm")
     graph, name = load_graph(args)
     print(f"loaded {name}: {graph.num_vertices} vertices, {graph.num_edges} edges "
           f"({'SE3' if graph.is_se3 else 'SE2'})", file=sys.stderr)
     loss = make_loss(args)
-    cfg = apx.LevenbergMarquardtConfig(
-        linear_solver_type=args.linear_solver,
-        max_iterations=args.max_iterations,
-        cost_tolerance=args.cost_tolerance,
-        mode="jit" if args.jit else "python",
-        verbose=args.verbose,
-    )
-    solver = apx.LevenbergMarquardt(cfg)
+    optimizers = ["lm", "gn", "dl"] if args.optimizer == "all" else [args.optimizer]
     cp = graph.to_problem(loss=loss, fix_first=args.fix_first).compile(device=device)
     chi2_before = graph.chi2()
 
-    def solve():
+    def solve(solver):
         t0 = time.perf_counter()
         result = solver.optimize(cp)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return result, time.perf_counter() - t0
 
-    if args.profile:
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=activities) as prof:
-            result, elapsed = solve()
-        TRACE_PATH.parent.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(TRACE_PATH))
-        print(f"profiler trace written to {TRACE_PATH}", file=sys.stderr)
-    else:
-        result, elapsed = solve()
-    chi2_after = graph.chi2(result.variables)
-    print(f"lm: {result.summary()}", file=sys.stderr)
+    rows = []
+    for kind in optimizers:
+        solver = make_solver(kind, args)
+        if args.profile:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            with torch.profiler.profile(activities=activities) as prof:
+                result, elapsed = solve(solver)
+            TRACE_PATH.parent.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(TRACE_PATH))
+            print(f"profiler trace written to {TRACE_PATH}", file=sys.stderr)
+        else:
+            result, elapsed = solve(solver)
+        rows.append((kind, result, elapsed, graph.chi2(result.variables)))
+        print(f"{kind}: {result.summary()}", file=sys.stderr)
 
     print(f"\n{'optimizer':>9} {'status':>28} {'iters':>5} {'init cost':>12} "
           f"{'final cost':>12} {'chi2 before':>12} {'chi2 after':>12} {'time':>9}")
-    print(f"{'lm':>9} {result.status.name:>28} {result.iterations:>5} "
-          f"{result.initial_cost:>12.4e} {result.final_cost:>12.4e} "
-          f"{chi2_before:>12.4e} {chi2_after:>12.4e} {elapsed * 1e3:>8.1f}m")
+    for kind, res, elapsed, chi2_after in rows:
+        print(f"{kind:>9} {res.status.name:>28} {res.iterations:>5} "
+              f"{res.initial_cost:>12.4e} {res.final_cost:>12.4e} "
+              f"{chi2_before:>12.4e} {chi2_after:>12.4e} {elapsed * 1e3:>8.1f}m")
 
     if args.save_output:
         vertices = graph.vertices_se3 if graph.is_se3 else graph.vertices_se2

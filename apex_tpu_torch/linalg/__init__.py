@@ -1,5 +1,5 @@
-"""Linear solvers of the port: the implicit Schur complement of bundle
-adjustment, the banded block cyclic reduction of pose graphs, and the dense
-Cholesky and QR solvers. The explicit Schur variant is ROADMAP A.3, the
-general-sparsity tier, banded QR and the iterative normal-equation solver
-A.6."""
+"""Linear solvers of the port: the Schur complement of bundle adjustment
+(implicit, by PCG, and explicit, a dense reduced camera matrix), the banded
+block cyclic reduction and the banded QR sweep of pose graphs, the dense
+Cholesky and QR solvers, and the matrix-free CG on the normal equations.
+The general-sparsity tier is ROADMAP A.6."""

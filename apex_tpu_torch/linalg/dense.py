@@ -1,6 +1,7 @@
 """Dense linear solvers on the normal equations (counterpart of
 ``apex_tpu/linalg/dense.py``): LM's default ``dense_cholesky`` and its
-``dense_qr``. Both solve the damped system (H + damping I) dx = -g.
+``dense_qr``. Both solve the damped system (H + damping I) dx = -g;
+``covariance_from_hessian`` inverts H for the covariance blocks.
 
 A Cholesky that fails gives NaN, never an exception (``banded._cholesky``:
 ``cholesky_ex`` with NaN where ``info != 0``), and the retry ladder reads
@@ -52,3 +53,9 @@ def solve_qr(r, J, damping=None):
         r = torch.cat([r, r.new_zeros(J.shape[1])])
     Q, R = torch.linalg.qr(J)
     return torch.linalg.solve_triangular(R, -(Q.mT @ r)[:, None], upper=True)[:, 0]
+
+
+def covariance_from_hessian(H):
+    """H^{-1} by a Cholesky solve against the identity; NaN where H is not
+    positive definite."""
+    return torch.cholesky_solve(_eye(H), _cholesky(H))

@@ -1,5 +1,5 @@
-"""Implicit Schur-complement solver for bundle adjustment (counterpart of the
-block path of ``apex_tpu/linalg/schur.py``, ``variant="iterative"``).
+"""Schur-complement solver for bundle adjustment (counterpart of the block
+path of ``apex_tpu/linalg/schur.py``).
 
 Landmarks (``pt_*``-named R^3 variables) are eliminated and the reduced
 camera system
@@ -7,18 +7,22 @@ camera system
     S = H_cc - W Hpp^{-1} W^T,      S dxc = -g_c + W Hpp^{-1} g_p
     dxp = Hpp^{-1} (-g_p - W^T dxc)
 
-is solved matrix-free by PCG with the Schur-Jacobi block preconditioner.
-The global sparse H is never formed. Per factor group the linearization
-gives one merged camera-entity Jacobian ``Jc [K, d, De]`` (every camera slot
-of a factor lies in one entity), from which come batched ``H_cc`` entity
-blocks ``[E, De, De]``, landmark blocks ``Hpp [P, 3, 3]`` and per-observation
-couplings ``W [K, De, 3]``; every sum over observations is one
-``index_add_``. The landmark blocks are inverted by the CUDA kernel of
+is solved in one of two ways. ``variant="iterative"`` (implicit): matrix-free
+PCG with the Schur-Jacobi block preconditioner; S is never formed.
+``variant="sparse"`` (explicit): the dense S is built from the pairs of
+observations that share a landmark, enumerated once per problem, and solved
+by a Cholesky factorization with the retry ladder; right for reduced
+systems of a few thousand camera DOF. The global sparse H is never formed.
+
+Per factor group the linearization gives one merged camera-entity Jacobian
+``Jc [K, d, De]`` (every camera slot of a factor lies in one entity), from
+which come batched ``H_cc`` entity blocks ``[E, De, De]``, landmark blocks
+``Hpp [P, 3, 3]`` and per-observation couplings ``W [K, De, 3]``; every sum
+over observations is one ``index_add_``. The landmark blocks are inverted by the CUDA kernel of
 ``kernels/landmark_blocks.py`` for a CUDA tensor.
 
 LM damping is added to H_cc's diagonal and to the Hpp blocks, the latter
-floored by ``pp_shift_floor`` (1e-4 in f32). The explicit variant (dense S,
-Cholesky) is ROADMAP A.3.
+floored by ``pp_shift_floor`` (1e-4 in f32), in both variants.
 
 ``index_add_`` on CUDA sums with atomics in no fixed order, so results
 differ from the JAX package's sorted segment sums, and from run to run, by
@@ -27,14 +31,18 @@ rounding.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..core.problem import CompiledProblem
 from ..kernels.landmark_blocks import invert_landmark_blocks
+from .dense import solve_cholesky_with_retry
+from .utils import bmv as _bmv
 from .utils import spd_clamped_inv
 
 
@@ -50,9 +58,34 @@ def _dot64(a, b):
     return torch.dot(a.reshape(-1).to(torch.float64), b.reshape(-1).to(torch.float64))
 
 
-def _bmv(A, x):
-    """Batched matrix-vector product [B, m, n] x [B, n] -> [B, m]."""
-    return (A @ x[..., None])[..., 0]
+def enumerate_pairs(lm_of_coupling):
+    """For every ordered pair of couplings (A, B), in row-major order, the
+    index pairs (ia, ib) of observations of A and of B that see the same
+    landmark: the per-landmark outer products of the explicit variant,
+    enumerated once over entity blocks. ``lm_of_coupling[i]`` is the host
+    array of landmark ids of coupling i; the result is a list of
+    ``(ia, ib)`` int64 numpy arrays.
+
+    Both sides are sorted by landmark; a landmark seen na times in A and nb
+    times in B contributes the na x nb grid of its two segments."""
+    P = max((int(ids.max()) + 1 for ids in lm_of_coupling if ids.size), default=0)
+    orders = [np.argsort(ids, kind="stable") for ids in lm_of_coupling]
+    counts = [np.bincount(ids, minlength=P) for ids in lm_of_coupling]
+    starts = [np.cumsum(c) - c for c in counts]
+    pairs = []
+    for a in range(len(lm_of_coupling)):
+        for b in range(len(lm_of_coupling)):
+            na, nb = counts[a], counts[b]
+            per_lm = na * nb
+            total = int(per_lm.sum())
+            # landmark of each pair, and the pair's rank within its landmark
+            lm = np.repeat(np.arange(P, dtype=np.int64), per_lm)
+            rank = np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(per_lm) - per_lm, per_lm)
+            nb_lm = nb[lm]  # positive wherever a pair exists
+            ia = orders[a][starts[a][lm] + rank // nb_lm]
+            ib = orders[b][starts[b][lm] + rank % nb_lm]
+            pairs.append((ia.astype(np.int64), ib.astype(np.int64)))
+    return pairs
 
 
 @dataclasses.dataclass
@@ -84,10 +117,8 @@ class SchurContext:
         pp_shift_floor: Optional[float] = None,
         pcg_q_tolerance: Optional[float] = None,
     ):
-        if variant != "iterative":
-            raise NotImplementedError(
-                f"Schur variant {variant!r} is not ported yet (ROADMAP A.3: "
-                "explicit Schur); the port has 'iterative'")
+        if variant not in ("sparse", "iterative"):
+            raise ValueError(f"unknown Schur variant {variant!r}; 'sparse' or 'iterative'")
         if preconditioner not in ("none", "block_diagonal", "schur_jacobi"):
             raise ValueError(f"unknown preconditioner {preconditioner!r}")
         self.cp = cp
@@ -240,6 +271,29 @@ class SchurContext:
         starts = np.nonzero(lm_id_arr >= 0)[0]
         self._lm_cols3 = long(starts[:, None] + np.arange(3))
         self._lm_ids_of_cols = long(lm_id_arr[starts])
+
+        # --- pair enumeration of the explicit variant --------------------------
+        self._lm_host = [lm_id_arr[gcols(p.group_idx, p.lm_slot)] for p in self.couplings]
+        self.pair_indices = None
+        if variant == "sparse":
+            self._enumerate_pairs()
+
+    def _enumerate_pairs(self):
+        dev = self.cp.device
+        self.pair_indices = [
+            (torch.as_tensor(ia, device=dev), torch.as_tensor(ib, device=dev))
+            for ia, ib in enumerate_pairs(self._lm_host)]
+
+    def with_variant(self, variant: str) -> "SchurContext":
+        """This context's structure under another variant, without a second
+        structure analysis (``schur_auto`` reads ``Dc`` first)."""
+        if variant not in ("sparse", "iterative"):
+            raise ValueError(f"unknown Schur variant {variant!r}; 'sparse' or 'iterative'")
+        other = copy.copy(self)
+        other.variant = variant
+        if variant == "sparse" and other.pair_indices is None:
+            other._enumerate_pairs()
+        return other
 
     # ------------------------------------------------------------------
 
@@ -405,11 +459,25 @@ class SchurContext:
         truncated PCG the shortcut 0.5 dx^T (lambda dx - g) under-predicts
         and collapses the Nielsen damping."""
         dt = self.cp.dtype
-        Hcc, gc, Hpp, gp, Ws, cost = self.assemble(values, damping)
-        Hpp_inv = landmark_inverse(Hpp)
+        with record_function("schur.assemble"):
+            Hcc, gc, Hpp, gp, Ws, cost = self.assemble(values, damping)
+            Hpp_inv = landmark_inverse(Hpp)
+            b = -gc + self._w_u(Ws, _bmv(Hpp_inv, gp))
 
-        b = -gc + self._w_u(Ws, _bmv(Hpp_inv, gp))
+        if self.variant == "sparse":
+            with record_function("schur.pair_products"):
+                S = self._schur_dense(Hcc, Hpp_inv, Ws)
+            with record_function("schur.dense_solve"):
+                # solve_cholesky_with_retry solves (H + shift I) x = -g
+                dxc = solve_cholesky_with_retry(S, -b)
+        else:
+            dxc = self._solve_reduced_pcg(Hcc, Hpp_inv, Ws, b, iteration, dx_prev)
 
+        with record_function("schur.back_substitute"):
+            return self._back_substitute(Hcc, gc, Hpp, gp, Ws, Hpp_inv, dxc, damping, cost)
+
+    def _solve_reduced_pcg(self, Hcc, Hpp_inv, Ws, b, iteration, dx_prev):
+        """The implicit variant's reduced solve: matrix-free S, PCG."""
         def apply_S(x):
             u = _bmv(Hpp_inv, self._wt_x(Ws, x))
             return self._hcc_matvec(Hcc, x) - self._w_u(Ws, u)
@@ -424,9 +492,58 @@ class SchurContext:
             def apply_M(x):
                 return self._hcc_matvec(inv_blocks, x)
 
-        dxc = self._pcg(apply_S, apply_M, b, rtol=self.pcg_rtol(iteration),
-                        x0=self._x0_reduced(dx_prev))
+        return self._pcg(apply_S, apply_M, b, rtol=self.pcg_rtol(iteration),
+                         x0=self._x0_reduced(dx_prev))
 
+    # Pairs processed per scatter step in the explicit variant. Dense
+    # visibility makes the pair count quadratic in cameras per landmark;
+    # fixed-size chunks bound the peak at about PAIR_CHUNK * De^2 elements
+    # (170 MB in f64 at De = 9) whatever the pair count.
+    PAIR_CHUNK = 1 << 18
+
+    def _hcc_dense(self, Hcc):
+        """The dense [Dc, Dc] block-diagonal H_cc from its entity blocks,
+        padded diagonal ones included."""
+        E, De = self.num_entities, self.entity_dof
+        dense = torch.zeros((self.Dc, self.Dc), dtype=Hcc.dtype, device=Hcc.device)
+        e = torch.arange(E, device=Hcc.device)
+        dense.view(E, De, E, De)[e, :, e, :] = Hcc
+        return dense
+
+    def _scatter_pair_products(self, S, Y, W, ent_a, ent_b, ia, ib):
+        """S -= Y[ia] @ W[ib]^T at entity block (ent_a[ia], ent_b[ib]), one
+        flat ``index_add_`` into S's storage per chunk of pairs."""
+        De, Dc = self.entity_dof, self.Dc
+        ar = torch.arange(De, device=S.device)
+        cell = ar[:, None] * Dc + ar[None, :]  # offsets within a block
+        flat = S.view(-1)
+        for lo in range(0, ia.shape[0], self.PAIR_CHUNK):
+            idx_a = ia[lo: lo + self.PAIR_CHUNK]
+            idx_b = ib[lo: lo + self.PAIR_CHUNK]
+            contrib = Y[idx_a] @ W[idx_b].mT  # [chunk, De, De]
+            base = ent_a[idx_a] * (De * Dc) + ent_b[idx_b] * De
+            flat.index_add_(0, (base[:, None, None] + cell).reshape(-1),
+                            contrib.reshape(-1), alpha=-1.0)
+        return S
+
+    def _schur_dense(self, Hcc, Hpp_inv, Ws):
+        """The explicit reduced camera matrix S = blockdiag(Hcc) - sum over
+        pairs of Y[ia] W[ib]^T with Y = W Hpp^-1."""
+        S = self._hcc_dense(Hcc)
+        Ys = [W @ Hpp_inv[plan.lm] for plan, W in zip(self.couplings, Ws)]
+        pi = 0
+        for a, pa in enumerate(self.couplings):
+            for bidx, pb in enumerate(self.couplings):
+                ia, ib = self.pair_indices[pi]
+                pi += 1
+                if ia.shape[0]:
+                    self._scatter_pair_products(S, Ys[a], Ws[bidx], pa.ent, pb.ent, ia, ib)
+        return S
+
+    def _back_substitute(self, Hcc, gc, Hpp, gp, Ws, Hpp_inv, dxc, damping, cost):
+        """Landmark step, exact model reduction and the global layout, shared
+        by both variants."""
+        dt = self.cp.dtype
         # back-substitution: dxp = Hpp^-1 (-gp - W^T dxc)
         dxp = _bmv(Hpp_inv, -gp - self._wt_x(Ws, dxc))
 

@@ -5,6 +5,11 @@ from __future__ import annotations
 import torch
 
 
+def bmv(A, x):
+    """Batched matrix-vector product [B, m, n] x [B, n] -> [B, m]."""
+    return (A @ x[..., None])[..., 0]
+
+
 def spd_clamped_inv(blocks, rel_floor=None):
     """Batched symmetric inverse with the eigenvalues clamped to a positive
     floor, so the result is SPD. The entity-merged Schur-Jacobi blocks can

@@ -1,8 +1,11 @@
-"""Optimizers of the port: Levenberg-Marquardt in python loop mode.
-Gauss-Newton and DogLeg are ROADMAP A.5."""
+"""Optimizers of the port, each in python loop mode: Levenberg-Marquardt,
+Gauss-Newton and DogLeg."""
 
-from .common import ConvergenceConfig, SolverResult, Status
+from .common import ConvergenceConfig, IterationStats, SolverResult, Status
+from .dogleg import DogLeg, DogLegConfig
+from .gauss_newton import GaussNewton, GaussNewtonConfig
 from .lm import LevenbergMarquardt, LevenbergMarquardtConfig
 
-__all__ = ["LevenbergMarquardt", "LevenbergMarquardtConfig", "SolverResult",
-           "Status", "ConvergenceConfig"]
+__all__ = ["Status", "SolverResult", "IterationStats", "ConvergenceConfig",
+           "LevenbergMarquardt", "LevenbergMarquardtConfig",
+           "GaussNewton", "GaussNewtonConfig", "DogLeg", "DogLegConfig"]

@@ -143,6 +143,7 @@ class SolverResult:
     successful_steps: int = 0
     unsuccessful_steps: int = 0
     iteration_stats: Optional[list] = None
+    covariances: Optional[Dict[str, np.ndarray]] = None
 
     @property
     def converged(self) -> bool:

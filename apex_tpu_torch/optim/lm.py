@@ -7,13 +7,18 @@
 - convergence checked after each iteration in the reference's order
 
 Each iteration runs eagerly on the problem's device and reads its scalars
-(costs, norms, predicted reduction) back once. The linear solvers ported are
+(costs, norms, predicted reduction) back once. The linear solvers:
 ``dense_cholesky`` (the default: dense H by scatter-add, Cholesky with the
-retry ladder), ``dense_qr`` (QR of the damped stacked Jacobian),
-``schur_implicit`` (bundle adjustment) and ``banded_cholesky``, alias
-``sparse_cholesky`` (pose graphs: band assembly and block cyclic
-reduction); ``mode="jit"``, a whole solve captured without host syncs, is
-ROADMAP A.8.
+retry ladder), ``dense_qr`` (QR of the damped stacked Jacobian);
+``banded_cholesky``, alias ``sparse_cholesky`` (pose graphs: band assembly
+and block cyclic reduction), and ``banded_qr``, alias ``sparse_qr`` (the
+same band, a QR sweep; ``dense_qr`` above a block bandwidth of 1536);
+``schur_implicit``, alias ``iterative_schur``, and ``schur_explicit``,
+aliases ``sparse_schur`` and ``sparse_schur_complement`` (bundle
+adjustment), with ``schur`` / ``schur_auto`` choosing the explicit variant
+up to 4096 reduced camera DOF; ``pcg`` (matrix-free CG on the normal
+equations). ``sparse_general`` is ROADMAP A.6; ``mode="jit"``, a whole
+solve captured without host syncs, is ROADMAP A.8.
 """
 
 from __future__ import annotations
@@ -37,17 +42,9 @@ from .common import (
     compute_step_quality,
 )
 
-_NOT_PORTED_SOLVERS = {
-    "sparse_qr": "A.6 (banded QR)",
-    "banded_qr": "A.6 (banded QR)",
-    "sparse_general": "A.6 (general-sparsity tier)",
-    "pcg": "A.6 (iterative normal-equation solver)",
-    "schur_explicit": "A.3 (explicit Schur)",
-    "sparse_schur_complement": "A.3 (explicit Schur)",
-    "sparse_schur": "A.3 (explicit Schur)",
-    "schur": "A.3 (explicit Schur)",
-    "schur_auto": "A.3 (explicit Schur)",
-}
+# schur / schur_auto: the dense reduced camera matrix up to this many
+# camera DOF, matrix-free PCG beyond
+SCHUR_AUTO_MAX_DENSE = 4096
 
 
 @dataclasses.dataclass
@@ -121,37 +118,61 @@ class LevenbergMarquardt:
         """linearize_and_solve(values, damping, iteration, jacobi_scale)
         -> (dx, g, cost, scale, predicted)."""
         cfg = self.config
-        aliases = {"iterative_schur": "schur_implicit",
-                   "sparse_cholesky": "banded_cholesky"}
+        aliases = {
+            "sparse_cholesky": "banded_cholesky",
+            "sparse_qr": "banded_qr",
+            "sparse_schur_complement": "schur_explicit",
+            "iterative_schur": "schur_implicit",
+        }
         solver_type = aliases.get(cfg.linear_solver_type, cfg.linear_solver_type)
-        if solver_type == "banded_cholesky":
-            return self._make_banded_solve_fn(cp)
+        if solver_type == "banded_qr":
+            from ..linalg import banded
+
+            # a panel-hostile bandwidth falls back to the dense damped
+            # stacked-J QR, which is at least as rank-robust
+            if banded.block_bandwidth(cp) > banded.MAX_BANDWIDTH:
+                solver_type = "dense_qr"
+        if solver_type in ("banded_cholesky", "banded_qr"):
+            return self._make_banded_solve_fn(cp, qr=solver_type == "banded_qr")
         if solver_type == "dense_cholesky":
             return self._make_dense_cholesky_solve_fn(cp)
         if solver_type == "dense_qr":
             return self._make_dense_qr_solve_fn(cp)
-        if solver_type != "schur_implicit":
-            if solver_type in _NOT_PORTED_SOLVERS:
+        if solver_type == "pcg":
+            return self._make_pcg_solve_fn(cp)
+        if solver_type not in ("schur_explicit", "schur_implicit", "sparse_schur",
+                               "schur", "schur_auto"):
+            if solver_type == "sparse_general":
                 raise NotImplementedError(
-                    f"linear solver {cfg.linear_solver_type!r} is not ported yet "
-                    f"(ROADMAP {_NOT_PORTED_SOLVERS[solver_type]}); the port has "
-                    "'dense_cholesky', 'dense_qr', 'sparse_cholesky' and 'schur_implicit'")
+                    "linear solver 'sparse_general' is not ported yet "
+                    "(ROADMAP A.6: general-sparsity tier)")
             raise ValueError(f"unknown linear solver {cfg.linear_solver_type!r}")
         from ..linalg.schur import SchurContext
 
-        ctx = SchurContext(
-            cp,
-            variant="iterative",
-            preconditioner=cfg.schur_preconditioner,
-            pcg_max_iterations=cfg.pcg_max_iterations,
-            pcg_tolerance=cfg.pcg_tolerance,
-            pcg_forcing=cfg.pcg_forcing,
-            pp_shift_floor=cfg.schur_pp_shift_floor,
-            # pcg_forcing=False means exact solves, so it disables both
-            # inexact-inner-solve policies
-            pcg_q_tolerance=cfg.pcg_q_tolerance if cfg.pcg_forcing else None,
-        )
-        warm = cfg.pcg_warm_start and not cfg.use_jacobi_scaling
+        def context(variant):
+            return SchurContext(
+                cp,
+                variant=variant,
+                preconditioner=cfg.schur_preconditioner,
+                pcg_max_iterations=cfg.pcg_max_iterations,
+                pcg_tolerance=cfg.pcg_tolerance,
+                pcg_forcing=cfg.pcg_forcing,
+                pp_shift_floor=cfg.schur_pp_shift_floor,
+                # pcg_forcing=False means exact solves, so it disables both
+                # inexact-inner-solve policies
+                pcg_q_tolerance=cfg.pcg_q_tolerance if cfg.pcg_forcing else None,
+            )
+
+        if solver_type in ("schur", "schur_auto"):
+            # the variant by the size of the reduced system, read from the
+            # iterative context (which enumerates no pairs)
+            ctx = context("iterative")
+            if ctx.Dc <= SCHUR_AUTO_MAX_DENSE:
+                ctx = ctx.with_variant("sparse")
+        else:
+            ctx = context("iterative" if solver_type == "schur_implicit" else "sparse")
+        warm = (cfg.pcg_warm_start and ctx.variant == "iterative"
+                and not cfg.use_jacobi_scaling)
 
         def solve_schur(values, damping, iteration, jacobi_scale):
             if warm:
@@ -164,15 +185,32 @@ class LevenbergMarquardt:
             dx, g, cost, predicted = ctx.solve(values, damping, iteration=iteration)
             return dx, g, cost, jacobi_scale, predicted
 
+        solve_schur.schur_context = ctx
         return solve_schur
 
-    def _make_banded_solve_fn(self, cp: CompiledProblem):
-        """Band assembly and block cyclic reduction; the predicted reduction
-        is left to the step (exact solve)."""
+    def _make_pcg_solve_fn(self, cp: CompiledProblem):
+        """Matrix-free block-preconditioned CG on the normal equations."""
+        from ..linalg.iterative import IterativeNormalSolver
+
+        cfg = self.config
+        it_solver = IterativeNormalSolver(
+            cp, max_iterations=cfg.pcg_max_iterations * 3,
+            tolerance=min(cfg.pcg_tolerance, 1e-8))
+
+        def solve_pcg(values, damping, iteration, jacobi_scale):
+            dx, g, cost = it_solver.solve(values, damping)
+            return dx, g, cost, jacobi_scale, None
+
+        return solve_pcg
+
+    def _make_banded_solve_fn(self, cp: CompiledProblem, qr: bool = False):
+        """Band assembly, then block cyclic reduction or (``qr``) the banded
+        QR sweep; the predicted reduction is left to the step (exact
+        solve)."""
         from ..linalg import banded
 
         cfg = self.config
-        if cfg.banded_panel is None:
+        if cfg.banded_panel is None and not qr:
             W = banded.block_bandwidth(cp)
             if W > banded.MAX_BANDWIDTH:
                 raise NotImplementedError(
@@ -180,7 +218,12 @@ class LevenbergMarquardt:
                     "switches to its general-sparsity tier, which is not ported yet "
                     "(ROADMAP A.6); set banded_panel to force a panel")
         asm = banded.BandedNormalAssembler(cp, block=cfg.banded_panel)
-        core = banded.make_blocktri_cr_core(cp.total_dof, asm.m, cp.dtype)
+        if qr:
+            from ..linalg.banded_qr import make_blocktri_qr_core
+
+            core = make_blocktri_qr_core(cp.total_dof, asm.m, cp.dtype)
+        else:
+            core = banded.make_blocktri_cr_core(cp.total_dof, asm.m, cp.dtype)
         D, m, n, Dp = asm.D, asm.m, asm.n, asm.Dp
 
         def solve_banded(values, damping, iteration, jacobi_scale):
@@ -301,6 +344,7 @@ class LevenbergMarquardt:
                            step_norm=step_norm, new_cost=new_cost)
             return values, damping, nu, cost, status, scale, metrics
 
+        step.solve_fn = solve_fn
         return step
 
     # ------------------------------------------------------------------
@@ -314,8 +358,6 @@ class LevenbergMarquardt:
             raise NotImplementedError(
                 f"mode {cfg.mode!r} is not ported yet (ROADMAP A.8: a solve "
                 "captured as a CUDA graph); the port has mode='python'")
-        if cfg.compute_covariances:
-            raise NotImplementedError("covariances are not ported yet (ROADMAP A.5)")
         cp = problem if isinstance(problem, CompiledProblem) else problem.compile(initial_values)
         if not cp.groups or cp.total_dof == 0:
             values = cp.initial_values()
@@ -325,7 +367,9 @@ class LevenbergMarquardt:
                                 elapsed_seconds=0.0, variables=cp.values_dict(values))
         return self._optimize_python(cp)
 
-    def _init_damping(self, cp: CompiledProblem, values) -> float:
+    def _init_damping_state(self, cp: CompiledProblem, values):
+        """The state threaded through ``step`` where LM's damping rides: a
+        float here; DogLeg packs its trust region and step cache."""
         cfg = self.config
         if cfg.damping == "auto":
             lam0 = cfg.damping_tau * float(cp.normal_diag_max(values))
@@ -340,7 +384,7 @@ class LevenbergMarquardt:
         if cp not in self._step_cache:
             self._step_cache[cp] = self._make_step_fn(cp)
         step_fn = self._step_cache[cp]
-        damping = self._init_damping(cp, values)
+        damping = self._init_damping_state(cp, values)
         nu = 2.0
         jacobi_scale = torch.ones(cp.total_dof, dtype=cp.dtype, device=cp.device)
 
@@ -369,7 +413,8 @@ class LevenbergMarquardt:
                 st = IterationStats(
                     iteration=iteration, cost=cost, cost_change=prev_cost - cost,
                     gradient_norm=grad_norm, step_norm=step_norm,
-                    tr_ratio=metrics["rho"], tr_radius=damping,
+                    tr_ratio=metrics["rho"],
+                    tr_radius=damping["delta"] if isinstance(damping, dict) else damping,
                     iter_time_ms=(time.perf_counter() - it_start) * 1e3,
                     total_time_ms=(time.perf_counter() - start) * 1e3,
                     accepted=accepted)
@@ -385,6 +430,12 @@ class LevenbergMarquardt:
             if status != Status.RUNNING:
                 break
 
+        covariances = None
+        if cfg.compute_covariances:
+            from ..core.covariance import compute_covariances
+
+            covariances = compute_covariances(cp, values)
+
         return SolverResult(
             status=status,
             iterations=iteration,
@@ -399,4 +450,5 @@ class LevenbergMarquardt:
             successful_steps=n_succ,
             unsuccessful_steps=n_fail,
             iteration_stats=stats,
+            covariances=covariances,
         )

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's bundle-adjustment and pose-graph paths (SE3,
-SE2, the robust-loss sweep with a prior, the dense solvers) once on one
-CUDA card.
+"""Drive the PyTorch port's bundle-adjustment paths (implicit and explicit
+Schur) and pose-graph paths (SE3, SE2, the robust-loss sweep with a prior,
+the dense solvers, Gauss-Newton and DogLeg, sparse_qr, pcg, covariances)
+once on one CUDA card.
 
 Run from the repository root: ``python3 chip_smoke.py``. Phases, in order,
 each printing one JSON line; any failure raises and exits non-zero:
@@ -218,6 +219,8 @@ def phase_small_parity():
 
 
 def phase_full_slice():
+    """The implicit solve of the trafalgar-scale synthetic: (dataset,
+    problem, kernel launches, LM iterations, {dtype: final RMSE})."""
     import math
 
     import torch
@@ -235,6 +238,7 @@ def phase_full_slice():
               observations=ds.num_observations, seconds=time.perf_counter() - t0))
     lb.launches = 0
     total = iterations = 0
+    implicit = {}
     for dtype in (torch.float64, torch.float32):
         t0 = time.perf_counter()
         cp = problem.compile(dtype=dtype, device="cuda")
@@ -266,7 +270,8 @@ def phase_full_slice():
         if launched < res.iterations:
             raise AssertionError(
                 f"{dtype}: {launched} kernel launches for {res.iterations} LM iterations")
-    return total, iterations
+        implicit[dtype] = dict(rmse_final=r1, solve_seconds=seconds)
+    return ds, problem, total, iterations, implicit
 
 
 # tests/test_medium_fixture.py's certified optimum and the JAX package's
@@ -284,7 +289,9 @@ SWEEP_COSTS = {"l2": (6145.86441008718, 16.063378445855403),
                "huber": (3246.84568247429, 16.063378445809057),
                "cauchy": (1390.0683695360126, 15.935114237585939)}
 PROFILE_SPANS = ("banded.linearize", "banded.assemble", "cr.eliminate", "cr.dense_fold",
-                 "cr.back_substitute", "cr.residual", "cr.refine", "cr.retry", "lm.trial_cost")
+                 "cr.back_substitute", "cr.residual", "cr.refine", "cr.retry", "lm.trial_cost",
+                 "schur.assemble", "schur.pair_products", "schur.dense_solve",
+                 "schur.back_substitute")
 
 
 def phase_pose_graph_parity():
@@ -353,21 +360,24 @@ def profile_solve(solve):
 def solve_three_times(lm, cp):
     """The first solve (plan, library warm-up), a solve under the profiler,
     and the timed solve: (result, [first s, timed s], profile, peak device
-    memory of the timed solve)."""
+    memory of the timed solve, LM iterations of the three together)."""
     import torch
 
     timed = []
+    iterations = 0
     for k in range(3):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         if k == 1:
             profiled = profile_solve(lambda: lm.optimize(cp))
+            iterations += profiled["iterations"]
             continue
         t0 = time.perf_counter()
         res = lm.optimize(cp)
         torch.cuda.synchronize()
         timed.append(time.perf_counter() - t0)
-    return res, timed, profiled, torch.cuda.max_memory_allocated()
+        iterations += res.iterations
+    return res, timed, profiled, torch.cuda.max_memory_allocated(), iterations
 
 
 def banded_full(phase, graph, problem, dtype):
@@ -388,7 +398,7 @@ def banded_full(phase, graph, problem, dtype):
     lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
         linear_solver_type="sparse_cholesky", max_iterations=100, cost_tolerance=1e-4,
         damping="auto"))
-    res, timed, profiled, peak = solve_three_times(lm, cp)
+    res, timed, profiled, peak, _ = solve_three_times(lm, cp)
     emit(dict(phase=phase, dtype=name, D=cp.total_dof, W=W, m=core.block,
               n=core.n_blocks, levels=core.levels, edges=graph.num_edges,
               status=res.status.name, iterations=res.iterations,
@@ -426,6 +436,7 @@ def phase_pose_graph_full():
             raise AssertionError(f"{dtype}: {res.summary()} misses the 99% gate")
         if dtype == torch.float64:
             check_costs("sphere f64", res, SPHERE_INITIAL, SPHERE_FINAL, SPHERE_ITERATIONS)
+    return graph, problem
 
 
 def phase_se2_parity():
@@ -486,14 +497,8 @@ def phase_se2_full():
     lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
         linear_solver_type="dense_cholesky", max_iterations=100, cost_tolerance=1e-4,
         damping="auto"))
-    timed = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = lm.optimize(cp)
-        torch.cuda.synchronize()
-        timed.append(time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    res, timed = timed_solves(lm, cp)
     sparse = banded_res[torch.float64]
     emit(dict(phase="se2_dense", dtype="float64", D=cp.total_dof, status=res.status.name,
               iterations=res.iterations, initial_cost=res.initial_cost,
@@ -505,6 +510,7 @@ def phase_se2_full():
     if not res.converged:
         raise AssertionError(f"dense f64: {res.summary()}")
     np.testing.assert_allclose(res.final_cost, sparse.final_cost, rtol=1e-6)
+    return problem
 
 
 def phase_robust_sweep():
@@ -534,13 +540,7 @@ def phase_robust_sweep():
         problem = graph.to_problem(loss=losses.LOSS_BY_NAME[name](*args))
         problem.add_residual_block([f"x{first}"], apx.ManifoldPriorFactor("SE3", anchor))
         cp = problem.compile(dtype=torch.float64, device="cuda")
-        timed = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = lm.optimize(cp)
-            torch.cuda.synchronize()
-            timed.append(time.perf_counter() - t0)
+        res, timed = timed_solves(lm, cp)
         emit(dict(phase="robust_sweep", loss=name, params=list(args), D=cp.total_dof,
                   status=res.status.name, iterations=res.iterations,
                   initial_cost=res.initial_cost, final_cost=res.final_cost,
@@ -549,6 +549,297 @@ def phase_robust_sweep():
             raise AssertionError(f"{name}: {res.summary()} misses the JAX test's gate")
         if name in SWEEP_COSTS:
             check_costs(name, res, *SWEEP_COSTS[name], 4)
+
+
+def phase_schur_explicit_parity():
+    """The explicit Schur solve on the small BA problem: card against CPU,
+    then against the dense and the exact implicit solves on the card."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.ba import build_ba_problem
+    from apex_tpu_torch.io import synthetic
+
+    ds = synthetic.synthetic_ba(n_cameras=8, n_points=150, seed=0)
+    problem = build_ba_problem(ds, mode="self_calibration")
+
+    def solve(device, solver, **kw):
+        cfg = apx.LevenbergMarquardtConfig(linear_solver_type=solver, max_iterations=30, **kw)
+        return apx.LevenbergMarquardt(cfg).optimize(
+            problem.compile(dtype=torch.float64, device=device))
+
+    rc, rh = solve("cuda", "schur_explicit"), solve("cpu", "schur_explicit")
+    if (rc.iterations, rc.status) != (rh.iterations, rh.status):
+        raise AssertionError(f"cuda {rc.summary()} vs cpu {rh.summary()}")
+    np.testing.assert_allclose(rc.final_cost, rh.final_cost, rtol=1e-8)
+    r_dense = solve("cuda", "dense_cholesky")
+    r_imp = solve("cuda", "schur_implicit", pcg_forcing=False, pcg_tolerance=1e-10,
+                  pcg_max_iterations=500)
+    np.testing.assert_allclose(rc.final_cost, r_dense.final_cost, rtol=1e-6)
+    np.testing.assert_allclose(rc.final_cost, r_imp.final_cost, rtol=1e-6)
+    emit(dict(phase="schur_explicit_parity", iterations=rc.iterations, status=rc.status.name,
+              cost_cuda=rc.final_cost, cost_cpu=rh.final_cost,
+              rel_diff=abs(rc.final_cost - rh.final_cost) / rh.final_cost,
+              cost_dense=r_dense.final_cost, cost_implicit=r_imp.final_cost,
+              iterations_dense=r_dense.iterations, iterations_implicit=r_imp.iterations))
+
+
+def phase_schur_explicit_full(ds, problem, implicit):
+    """The trafalgar-scale synthetic through ``schur``: (kernel launches,
+    LM iterations)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.ba import rmse
+    from apex_tpu_torch.kernels import landmark_blocks as lb
+    from apex_tpu_torch.linalg import dense, schur
+
+    # pairs among the observations themselves: the bucketed layout's
+    # weight-0 padding rows add theirs to the enumeration
+    observation_pairs = int((np.bincount(ds.point_indices).astype(np.int64) ** 2).sum())
+
+    # the retry stages of the dense solve: calls of the Cholesky solve
+    # beyond one per reduced system
+    calls = {"cho_solve": 0, "pairs_s": 0.0}
+    cho_solve, enumerate_pairs = dense._cho_solve, schur.enumerate_pairs
+
+    def counted_cho_solve(A, b):
+        calls["cho_solve"] += 1
+        return cho_solve(A, b)
+
+    def timed_enumerate_pairs(lm_of_coupling):
+        t0 = time.perf_counter()
+        out = enumerate_pairs(lm_of_coupling)
+        calls["pairs_s"] += time.perf_counter() - t0
+        return out
+
+    dense._cho_solve, schur.enumerate_pairs = counted_cho_solve, timed_enumerate_pairs
+    lb.launches = 0
+    total = iterations = 0
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        cp = problem.compile(dtype=dtype, device="cuda")
+        cfg = apx.LevenbergMarquardtConfig.for_bundle_adjustment()
+        cfg.linear_solver_type = "schur"
+        cfg.max_iterations = 10
+        lm = apx.LevenbergMarquardt(cfg)
+        calls["pairs_s"] = 0.0
+        calls["cho_solve"] = 0
+        t0 = time.perf_counter()
+        lm._step_cache[cp] = lm._make_step_fn(cp)  # the structure analysis, timed apart
+        context_s = time.perf_counter() - t0
+        ctx = lm._step_cache[cp].solve_fn.schur_context
+        if ctx.variant != "sparse":
+            raise AssertionError(f"schur chose {ctx.variant!r} at Dc = {ctx.Dc}")
+        n_pairs = sum(int(ia.shape[0]) for ia, _ in ctx.pair_indices)
+        before = lb.launches
+        res, timed, profiled, peak, lm_iterations = solve_three_times(lm, cp)
+        launched = lb.launches - before
+        total += launched
+        iterations += lm_iterations
+        r0 = rmse(res.initial_cost, ds.num_observations)
+        r1 = rmse(res.final_cost, ds.num_observations)
+        ref = implicit[dtype]
+        emit(dict(phase="schur_explicit_full", dtype=name, variant="sparse",
+                  Dc=ctx.Dc, pairs=n_pairs, observation_pairs=observation_pairs,
+                  pair_chunks=-(-n_pairs // schur.SchurContext.PAIR_CHUNK),
+                  pair_enumeration_seconds=calls["pairs_s"], context_seconds=context_s,
+                  status=res.status.name, iterations=res.iterations,
+                  first_solve_seconds=timed[0], solve_seconds=timed[1],
+                  seconds_per_lm_iteration=timed[1] / res.iterations,
+                  max_memory_allocated=peak, rmse_initial=r0, rmse_final=r1,
+                  implicit_rmse_final=ref["rmse_final"],
+                  implicit_solve_seconds=ref["solve_seconds"],
+                  lm_iterations_of_three_solves=lm_iterations,
+                  dense_solve_retry_stages=calls["cho_solve"] - lm_iterations,
+                  kernel_launches=launched, profile=profiled))
+        if not math.isfinite(res.final_cost):
+            raise AssertionError(f"{name}: final cost not finite")
+        if not r1 < 0.55 * r0:
+            raise AssertionError(f"{name}: RMSE {r0} -> {r1} misses the 0.55x gate")
+        if dtype == torch.float64 and abs(r1 - ref["rmse_final"]) > 0.02 * ref["rmse_final"]:
+            raise AssertionError(
+                f"{name}: RMSE {r1} is not within 2% of the implicit solve's {ref['rmse_final']}")
+        if launched != lm_iterations:
+            raise AssertionError(
+                f"{name}: {launched} kernel launches for {lm_iterations} LM iterations")
+    dense._cho_solve, schur.enumerate_pairs = cho_solve, enumerate_pairs
+    return total, iterations
+
+
+def values_of(cp, variables):
+    """A result's ``variables`` as the values tuple of ``cp``, on its device."""
+    import numpy as np
+    import torch
+
+    return tuple(torch.as_tensor(np.stack([variables[n] for n in pool.names]),
+                                 dtype=cp.dtype, device=cp.device) for pool in cp.pools)
+
+
+def timed_solves(solver, cp, n=2):
+    """``n`` solves: (last result, seconds of each)."""
+    import torch
+
+    timed = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver.optimize(cp)
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+    return res, timed
+
+
+def phase_optimizers(sphere_problem):
+    """DogLeg and Gauss-Newton: at full width on the sphere against LM's
+    final cost, and card against CPU on the medium SE3 fixture."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+
+    common = dict(linear_solver_type="sparse_cholesky", max_iterations=100, cost_tolerance=1e-4)
+    cp = sphere_problem.compile(dtype=torch.float64, device="cuda")
+    for name, solver in (("dogleg", apx.DogLeg(apx.DogLegConfig(**common))),
+                         ("gauss_newton", apx.GaussNewton(apx.GaussNewtonConfig(**common)))):
+        res, timed = timed_solves(solver, cp)
+        emit(dict(phase="optimizers", optimizer=name, graph="sphere2500", D=cp.total_dof,
+                  status=res.status.name, iterations=res.iterations,
+                  initial_cost=res.initial_cost, final_cost=res.final_cost,
+                  rel_diff_to_lm=abs(res.final_cost - SPHERE_FINAL) / SPHERE_FINAL,
+                  first_solve_seconds=timed[0], solve_seconds=timed[1],
+                  seconds_per_iteration=timed[1] / res.iterations,
+                  reused_steps=getattr(solver, "reused_steps", None)))
+        if not res.converged:
+            raise AssertionError(f"{name}: {res.summary()}")
+        np.testing.assert_allclose(res.final_cost, SPHERE_FINAL, rtol=1e-6, err_msg=name)
+
+    problem = apx.load_g2o(os.path.join(REPO, MEDIUM_SE3[0])).to_problem()
+    for name, make in (("dogleg", lambda: apx.DogLeg(apx.DogLegConfig(
+                            linear_solver_type="sparse_cholesky"))),
+                       ("gauss_newton", lambda: apx.GaussNewton(apx.GaussNewtonConfig(
+                            linear_solver_type="sparse_cholesky")))):
+        rc = make().optimize(problem.compile(dtype=torch.float64, device="cuda"))
+        rh = make().optimize(problem.compile(dtype=torch.float64, device="cpu"))
+        if (rc.iterations, rc.status) != (rh.iterations, rh.status) or not rc.converged:
+            raise AssertionError(f"{name}: cuda {rc.summary()} vs cpu {rh.summary()}")
+        np.testing.assert_allclose(rc.final_cost, rh.final_cost, rtol=1e-8)
+        emit(dict(phase="optimizers_parity", optimizer=name, file=MEDIUM_SE3[0],
+                  iterations=rc.iterations, status=rc.status.name, cost_cuda=rc.final_cost,
+                  cost_cpu=rh.final_cost,
+                  rel_diff=abs(rc.final_cost - rh.final_cost) / rh.final_cost))
+
+
+def phase_small_solvers(sphere_problem, m3500_problem):
+    """``sparse_qr`` and ``pcg`` under LM: the certified fixtures on the
+    card, then ``sparse_qr`` at full width, timed."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+
+    for fname, certified, iterations in (MEDIUM_SE3, MEDIUM_SE2):
+        problem = apx.load_g2o(os.path.join(REPO, fname)).to_problem()
+        cp = problem.compile(dtype=torch.float64, device="cuda")
+        for solver in ("sparse_qr", "pcg"):
+            lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+                linear_solver_type=solver, max_iterations=100, cost_tolerance=1e-10,
+                parameter_tolerance=1e-14, gradient_tolerance=1e-14))
+            res, timed = timed_solves(lm, cp, n=1)
+            emit(dict(phase="small_solvers_parity", file=fname, solver=solver,
+                      iterations=res.iterations, status=res.status.name,
+                      final_cost=res.final_cost, certified=certified,
+                      rel_diff=abs(res.final_cost - certified) / certified,
+                      solve_seconds=timed[0]))
+            if not res.converged:
+                raise AssertionError(f"{solver} {fname}: {res.summary()}")
+            np.testing.assert_allclose(res.final_cost, certified, rtol=1e-8)
+            # the exact band solve takes the certified iteration count; CG
+            # stops at its own tolerance and may take another LM step
+            if solver == "sparse_qr" and res.iterations != iterations:
+                raise AssertionError(f"{solver} {fname}: {res.iterations} iterations")
+
+    for graph, problem, initial, final, its in (
+            ("m3500", m3500_problem, M3500_INITIAL, M3500_FINAL, M3500_ITERATIONS),
+            ("sphere2500", sphere_problem, SPHERE_INITIAL, SPHERE_FINAL, SPHERE_ITERATIONS)):
+        cp = problem.compile(dtype=torch.float64, device="cuda")
+        lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+            linear_solver_type="sparse_qr", max_iterations=100, cost_tolerance=1e-4,
+            damping="auto"))
+        res, timed = timed_solves(lm, cp)
+        emit(dict(phase="sparse_qr_full", graph=graph, D=cp.total_dof, status=res.status.name,
+                  iterations=res.iterations, initial_cost=res.initial_cost,
+                  final_cost=res.final_cost, first_solve_seconds=timed[0],
+                  solve_seconds=timed[1], seconds_per_lm_iteration=timed[1] / res.iterations))
+        check_costs(f"sparse_qr {graph}", res, initial, final, its)
+
+
+def phase_covariance(sphere_graph):
+    """Covariance blocks: the dense route card against CPU on the medium
+    fixture, the banded route against the dense one on the sphere."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.core.covariance import compute_covariances, compute_covariances_for
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    problem = apx.load_g2o(os.path.join(REPO, MEDIUM_SE3[0])).to_problem(fix_first=True)
+    results = {}
+    for device in ("cuda", "cpu"):
+        cp = problem.compile(dtype=torch.float64, device=device)
+        lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+            linear_solver_type="sparse_cholesky", compute_covariances=True))
+        results[device] = lm.optimize(cp)
+        if device == "cuda":
+            values = values_of(cp, results[device].variables)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            compute_covariances(cp, values)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    cc, ch = results["cuda"].covariances, results["cpu"].covariances
+    worst = max(rel(cc[n], ch[n]) for n in ch if np.abs(ch[n]).max() > 0)
+    fixed = [n for n in ch if np.abs(ch[n]).max() == 0]
+    emit(dict(phase="covariance_parity", file=MEDIUM_SE3[0], blocks=len(cc),
+              fixed_blocks=fixed, worst_rel_diff=worst, seconds_cuda=seconds,
+              iterations=results["cuda"].iterations))
+    if set(cc) != set(ch) or not all(np.abs(cc[n]).max() == 0 for n in fixed):
+        raise AssertionError("covariance blocks differ between the card and the CPU")
+    if not worst < 1e-8:
+        raise AssertionError(f"covariance blocks differ by {worst} between card and CPU")
+
+    cp = sphere_graph.to_problem(fix_first=True).compile(dtype=torch.float64, device="cuda")
+    res = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+        linear_solver_type="sparse_cholesky", max_iterations=100, cost_tolerance=1e-4,
+        damping="auto")).optimize(cp)
+    values = values_of(cp, res.variables)
+    ids = sorted(sphere_graph.vertices_se3)
+    names = [f"x{ids[1]}", f"x{ids[len(ids) // 2]}", f"x{ids[-1]}"]
+    out, timing, peaks = {}, {}, {}
+    for route, fn in (("banded", compute_covariances_for), ("dense", compute_covariances)):
+        for k in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out[route] = fn(cp, values, names)
+            torch.cuda.synchronize()
+            timing.setdefault(route, []).append(time.perf_counter() - t0)
+        peaks[route] = torch.cuda.max_memory_allocated()
+    worst = max(rel(out["banded"][n], out["dense"][n]) for n in names)
+    emit(dict(phase="covariance_full", graph="sphere2500", D=cp.total_dof, poses=names,
+              lm_iterations=res.iterations, worst_rel_diff=worst,
+              banded_seconds=timing["banded"], dense_seconds=timing["dense"],
+              banded_peak_memory=peaks["banded"], dense_peak_memory=peaks["dense"],
+              trace_of_blocks={n: float(np.trace(out["dense"][n])) for n in names}))
+    if not worst < 1e-6:
+        raise AssertionError(f"banded covariance blocks differ from dense by {worst}")
 
 
 def main():
@@ -580,12 +871,19 @@ def main():
             measured[(P, dtype)] = phase_kernel(P, dtype)
 
     phase_small_parity()
-    launches, iterations = phase_full_slice()
+    ds, ba_problem, launches, iterations, implicit = phase_full_slice()
     phase_pose_graph_parity()
-    phase_pose_graph_full()
+    sphere_graph, sphere_problem = phase_pose_graph_full()
     phase_se2_parity()
-    phase_se2_full()
+    m3500_problem = phase_se2_full()
     phase_robust_sweep()
+    phase_schur_explicit_parity()
+    explicit_launches, explicit_iterations = phase_schur_explicit_full(ds, ba_problem, implicit)
+    launches += explicit_launches
+    iterations += explicit_iterations
+    phase_optimizers(sphere_problem)
+    phase_small_solvers(sphere_problem, m3500_problem)
+    phase_covariance(sphere_graph)
 
     main_shape = measured[(65_132, torch.float64)]
     emit({"kernels": [{

@@ -137,7 +137,7 @@ def test_entry_points_default_to_the_card(small_ba):
 
 @pytest.mark.parametrize("change,match", [
     (dict(linear_solver_type="sparse_general"), "ROADMAP A.6"),
-    (dict(linear_solver_type="schur_explicit"), "ROADMAP A.3"),
+    (dict(linear_solver_type="schur_explicit", mode="jit"), "ROADMAP A.8"),
     (dict(linear_solver_type="schur_implicit", mode="jit"), "ROADMAP A.8"),
 ])
 def test_not_ported_paths_raise(small_ba, change, match):

@@ -260,3 +260,113 @@ def test_dense_solvers_card_match_cpu(card, kind):
     q_card = dense.solve_qr(g.new_ones(900).to(card), J.to(card), 1e-3).cpu()
     q_cpu = dense.solve_qr(g.new_ones(900), J, 1e-3)
     assert (q_card - q_cpu).abs().max() <= 1e-12 * q_cpu.abs().max()
+
+
+# -- explicit Schur, Gauss-Newton, DogLeg, sparse_qr, pcg, covariances ---------
+
+FIXTURES = __import__("pathlib").Path(__file__).resolve().parent / "fixtures"
+
+
+@pytest.mark.parametrize("solver", ["schur_explicit", "schur"])
+def test_explicit_schur_card_matches_cpu(card, solver):
+    """The explicit solve in f64: the same LM path on the card and the CPU,
+    and the landmark kernel launched once per LM iteration."""
+    ds = synthetic.synthetic_ba(n_cameras=8, n_points=150, seed=0)
+    problem = build_ba_problem(ds)
+    cfg = apx.LevenbergMarquardtConfig(linear_solver_type=solver, max_iterations=30)
+    lm = apx.LevenbergMarquardt(cfg)
+    cp = problem.compile(device=card)
+    before = lb.launches
+    rc = lm.optimize(cp)
+    assert lb.launches - before == rc.iterations
+    assert lm._step_cache[cp].solve_fn.schur_context.variant == "sparse"
+    rh = apx.LevenbergMarquardt(cfg).optimize(problem.compile(device="cpu"))
+    assert (rc.iterations, rc.status) == (rh.iterations, rh.status)
+    np.testing.assert_allclose(rc.final_cost, rh.final_cost, rtol=1e-8)
+
+
+def test_explicit_schur_matrix_card_matches_cpu(card):
+    """S and b of one assembly, pairs in chunks of 37 on the card."""
+    from apex_tpu_torch.linalg.schur import SchurContext, landmark_inverse
+
+    ds = synthetic.synthetic_ba(n_cameras=6, n_points=80, seed=2)
+    problem = build_ba_problem(ds)
+    out = {}
+    for device in (card, "cpu"):
+        cp = problem.compile(device=device)
+        ctx = SchurContext(cp, variant="sparse")
+        ctx.PAIR_CHUNK = 37 if device is card else SchurContext.PAIR_CHUNK
+        Hcc, _, Hpp, _, Ws, _ = ctx.assemble(cp.initial_values(), 0.1)
+        out[str(device)] = ctx._schur_dense(Hcc, landmark_inverse(Hpp), Ws).cpu()
+    S_card, S_cpu = out[str(card)], out["cpu"]
+    assert (S_card - S_cpu).abs().max() <= 1e-12 * S_cpu.abs().max()
+
+
+@pytest.mark.parametrize("optimizer", ["gn", "dl"])
+@pytest.mark.parametrize("solver", ["sparse_cholesky", "dense_cholesky", "sparse_qr"])
+def test_optimizers_card_match_cpu(card, optimizer, solver):
+    problem = synthetic.synthetic_pose_graph_3d(n_poses=120, rings=6, seed=3).to_problem(
+        fix_first=solver == "sparse_qr")
+
+    def make():
+        if optimizer == "gn":
+            return apx.GaussNewton(apx.GaussNewtonConfig(linear_solver_type=solver))
+        return apx.DogLeg(apx.DogLegConfig(linear_solver_type=solver))
+
+    rc = make().optimize(problem.compile(device=card))
+    rh = make().optimize(problem.compile(device="cpu"))
+    assert rc.converged and (rc.iterations, rc.status) == (rh.iterations, rh.status)
+    np.testing.assert_allclose(rc.final_cost, rh.final_cost, rtol=1e-8)
+
+
+@pytest.mark.parametrize("solver", ["sparse_qr", "pcg"])
+@pytest.mark.parametrize("fname,certified", [("medium_se3_250.g2o", 5.132992631561506e-01),
+                                             ("medium_se2_300.g2o", 5.668402411723587e-02)])
+def test_small_solvers_on_the_card(card, solver, fname, certified):
+    cfg = apx.LevenbergMarquardtConfig(
+        linear_solver_type=solver, max_iterations=100, cost_tolerance=1e-10,
+        parameter_tolerance=1e-14, gradient_tolerance=1e-14)
+    r = apx.LevenbergMarquardt(cfg).optimize(
+        apx.load_g2o(FIXTURES / fname).to_problem().compile(device=card))
+    assert r.converged
+    np.testing.assert_allclose(r.final_cost, certified, rtol=1e-8)
+
+
+def test_qr_core_card_matches_cpu(card):
+    from apex_tpu_torch.linalg.banded_qr import make_blocktri_qr_core
+
+    A, _, b = _banded_spd(6 * 32, 16, seed=5)
+    A4 = A.reshape(6, 32, 6, 32)
+    Dg = torch.from_numpy(np.stack([A4[i, :, i] for i in range(6)]))
+    Cg = torch.from_numpy(np.stack([np.zeros((32, 32))] + [A4[i, :, i - 1] for i in range(1, 6)]))
+    bp = torch.from_numpy(b.reshape(6, 32))
+    core = make_blocktri_qr_core(A.shape[0], 32, torch.float64)
+    x_card = core(Dg.to(card), Cg.to(card), bp.to(card), 0.3).cpu()
+    x_cpu = core(Dg, Cg, bp, 0.3)
+    assert (x_card - x_cpu).abs().max() <= 1e-12 * x_cpu.abs().max()
+    np.testing.assert_allclose(x_cpu.numpy(), np.linalg.solve(A + 0.3 * np.eye(192), b),
+                               rtol=1e-10, atol=1e-12)
+
+
+def test_covariances_card_match_cpu(card):
+    """LM's covariance blocks (dense route), the selected blocks, and the
+    banded route called directly, card against CPU."""
+    from apex_tpu_torch.core import covariance
+
+    problem = apx.load_g2o(FIXTURES / "medium_se3_250.g2o").to_problem(fix_first=True)
+    cfg = apx.LevenbergMarquardtConfig(linear_solver_type="sparse_cholesky",
+                                       compute_covariances=True)
+    out = {}
+    for device in (card, "cpu"):
+        cp = problem.compile(device=device)
+        res = apx.LevenbergMarquardt(cfg).optimize(cp)
+        v0 = cp.initial_values()
+        out[str(device)] = (res.covariances,
+                            covariance.compute_covariances_for(cp, v0, ["x0", "x7", "x249"]),
+                            covariance._banded_covariances_for(cp, v0, ["x0", "x7", "x249"]))
+    for got, want in zip(out[str(card)], out["cpu"]):
+        assert set(got) == set(want)
+        for n in want:
+            assert got[n].shape == (6, 6)
+            assert np.abs(got[n] - want[n]).max() <= 1e-8 * max(np.abs(want[n]).max(), 1e-300)
+    assert np.abs(out[str(card)][0]["x0"]).max() == 0.0  # the fixed pose

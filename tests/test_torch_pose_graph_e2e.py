@@ -79,7 +79,7 @@ def test_sphere_first_step_matches_apex_tpu(sphere500):
     lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
         linear_solver_type="sparse_cholesky", **BENCH))
     jdamp = float(jlm._init_damping_state(jcp, jvals))
-    damp = lm._init_damping(cp, values)
+    damp = lm._init_damping_state(cp, values)
     np.testing.assert_allclose(damp, jdamp, rtol=1e-12)
     jdx, jg, jcost, _, _ = jlm._make_solve_fn(jcp)(
         jvals, jnp.asarray(jdamp), jnp.asarray(0), jnp.ones(jcp.total_dof))
@@ -149,9 +149,10 @@ def test_cli_module_runs_with_profile():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--synthetic", "sphere", "--optimizer", "gn"], "ROADMAP A.5"),
-    (["--synthetic", "sphere", "--optimizer", "dl"], "ROADMAP A.5"),
-    (["--synthetic", "sphere", "--optimizer", "all"], "ROADMAP A.5"),
+    (["--synthetic", "sphere", "--optimizer", "gn", "--jit"], "ROADMAP A.8"),
+    (["--synthetic", "sphere", "--optimizer", "dl", "--jit"], "ROADMAP A.8"),
+    (["--synthetic", "sphere", "--optimizer", "all", "--linear-solver", "sparse_general"],
+     "ROADMAP A.6"),
     (["--dataset", "sphere2500"], "ROADMAP A.10"),
     (["--synthetic", "sphere", "--jit"], "ROADMAP A.8"),
     (["--synthetic", "sphere", "--linear-solver", "sparse_general"], "ROADMAP A.6"),
@@ -172,18 +173,39 @@ def test_cli_not_ported_paths_raise(argv, match):
     (["--synthetic", "sphere", "--poses", "100", "--loss", "cauchy", "--loss-scale", "0.5"],
      "SE3"),
     (["--synthetic", "sphere", "--poses", "100", "--linear-solver", "dense_cholesky"], "SE3"),
-], ids=["ring", "manhattan", "toro", "se2", "loss", "dense"])
+    (["--synthetic", "sphere", "--poses", "100", "--optimizer", "gn"], "SE3"),
+    (["--synthetic", "ring", "--poses", "60", "--optimizer", "dl"], "SE2"),
+    (["--synthetic", "ring", "--poses", "60", "--linear-solver", "sparse_qr"], "SE2"),
+    (["--synthetic", "sphere", "--poses", "100", "--linear-solver", "pcg"], "SE3"),
+], ids=["ring", "manhattan", "toro", "se2", "loss", "dense", "gn", "dl", "sparse_qr", "pcg"])
 def test_cli_ported_paths_run(argv, graph, capsys):
-    """The paths that raised before SE2, the loss menu and the dense tier
-    were ported: each solves on the CPU and prints the report table."""
+    """The paths that raised before SE2, the loss menu, the dense tier, the
+    other optimizers and the small solver tiers were ported: each solves on
+    the CPU and prints the report table."""
     from apex_tpu_torch.cli.pose_graph import main
 
     assert main(argv + ["--platform", "cpu"]) == 0
     captured = capsys.readouterr()
     assert f"({graph})" in captured.err
     row = captured.out.strip().splitlines()[-1].split()
-    assert row[0] == "lm" and "TOLERANCE_REACHED" in row[1]
+    optimizer = argv[argv.index("--optimizer") + 1] if "--optimizer" in argv else "lm"
+    assert row[0] == optimizer and "TOLERANCE_REACHED" in row[1]
     assert float(row[4]) < float(row[3])  # final cost below the initial
+
+
+@pytest.mark.parametrize("solver", ["sparse_cholesky", "pcg"])
+def test_cli_optimizer_all(solver, capsys):
+    """``--optimizer all``: one row per optimizer, all at LM's cost (rtol
+    1e-3 of the printed figures); DogLeg, which has no pcg, takes
+    sparse_cholesky."""
+    from apex_tpu_torch.cli.pose_graph import main
+
+    assert main(["--file", str(FIXTURES / MEDIUM_SE3[0]), "--optimizer", "all",
+                 "--linear-solver", solver, "--platform", "cpu"]) == 0
+    rows = [line.split() for line in capsys.readouterr().out.strip().splitlines()[-3:]]
+    assert [r[0] for r in rows] == ["lm", "gn", "dl"]
+    assert all("TOLERANCE_REACHED" in r[1] for r in rows)
+    np.testing.assert_allclose([float(r[4]) for r in rows], MEDIUM_SE3[1], rtol=1e-3)
 
 
 def test_cli_unknown_loss_exits():
@@ -263,6 +285,16 @@ def test_port_imports_no_jax():
         "import apex_tpu_torch.io.toro, apex_tpu_torch.linalg.dense, apex_tpu_torch.factors.prior\n"
         "import apex_tpu_torch.manifolds.se2, apex_tpu_torch.manifolds.so2\n"
         "import apex_tpu_torch.core.losses, apex_tpu_torch.core.corrector\n"
+        "import apex_tpu_torch.optim.gauss_newton, apex_tpu_torch.optim.dogleg\n"
+        "import apex_tpu_torch.core.covariance, apex_tpu_torch.linalg.banded_qr\n"
+        "import apex_tpu_torch.linalg.iterative, apex_tpu_torch.linalg.schur\n"
+        "g = apex_tpu_torch.io.synthetic.synthetic_pose_graph_2d(20).to_problem(fix_first=True)\n"
+        "for solver in ('sparse_qr', 'pcg'):\n"
+        "    apex_tpu_torch.DogLeg(apex_tpu_torch.DogLegConfig()).optimize(\n"
+        "        g.compile(device='cpu'))\n"
+        "    apex_tpu_torch.LevenbergMarquardt(apex_tpu_torch.LevenbergMarquardtConfig(\n"
+        "        linear_solver_type=solver, compute_covariances=True)).optimize(\n"
+        "        g.compile(device='cpu'))\n"
         "apex_tpu_torch.io.synthetic.synthetic_pose_graph_3d(40, 4).to_problem()\n"
         "apex_tpu_torch.io.synthetic.synthetic_pose_graph_2d(40).to_problem()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'apex_tpu')]\n"

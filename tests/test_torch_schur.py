@@ -119,5 +119,11 @@ def test_convert_checks(setup):
 
 
 def test_not_ported_variant(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        SchurContext(setup[3], variant="sparse")
+    """Both variants are ported (tests/test_torch_schur_explicit.py holds
+    the explicit one to apex_tpu); any other name is a ValueError."""
+    assert SchurContext(setup[3], variant="sparse").pair_indices is not None
+    assert setup[4].pair_indices is None
+    for make in (lambda: SchurContext(setup[3], variant="dense"),
+                 lambda: setup[4].with_variant("explicit")):
+        with pytest.raises(ValueError, match="unknown Schur variant"):
+            make()
