@@ -8,10 +8,12 @@ python loop mode:
   ``schur`` picks it up to 4096 camera DOF), with the landmark block
   inverse as a hand-written CUDA kernel;
 - SE2 and SE3 pose graphs (G2O and TORO files, the synthetic ring,
-  manhattan and sphere graphs, ``BetweenFactor``, the prior factors, the 15
-  robust losses), solved by ``sparse_cholesky`` (band assembly and block
-  cyclic reduction), ``sparse_qr`` (the same band, a QR sweep), the dense
-  tier, ``dense_cholesky`` (LM's default) and ``dense_qr``, or ``pcg``
+  manhattan, sphere and 3D-lattice graphs, ``BetweenFactor``, the prior
+  factors, the 15 robust losses), solved by ``sparse_cholesky`` (band
+  assembly and block cyclic reduction, or above a 1536-column bandwidth the
+  general tier), ``sparse_qr`` (the same band, a QR sweep),
+  ``sparse_general`` (independent-set block elimination, any sparsity), the
+  dense tier, ``dense_cholesky`` (LM's default) and ``dense_qr``, or ``pcg``
   (matrix-free CG on the normal equations);
 - covariance blocks after a solve (``compute_covariances=True``,
   ``core.covariance``).

@@ -5,14 +5,14 @@ It takes G2O files (SE2 or SE3) and TORO files (by the suffix ``.toro`` or
 ``.graph``), the synthetic ``ring``, ``manhattan`` (SE2) and ``sphere``
 (SE3) graphs, every loss of ``LOSS_BY_NAME``, the optimizers ``lm``, ``gn``
 and ``dl`` (``all`` runs the three and prints one row each), and the linear
-solvers ``sparse_cholesky``, ``sparse_qr``, ``dense_cholesky``, ``dense_qr``
-and ``pcg`` (DogLeg, which has no ``pcg``, takes ``sparse_cholesky``
-instead). ``--platform`` picks the torch device: ``cuda`` (default) or
-``cpu``. Asking for ``cuda`` on a machine without a card raises.
-``--profile`` writes a ``torch.profiler`` trace of the last solve. Not
-ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-``--linear-solver sparse_general`` (A.6), ``--dataset`` (A.10) and ``--jit``
-(A.8).
+solvers ``sparse_cholesky``, ``sparse_qr``, ``sparse_general``,
+``dense_cholesky``, ``dense_qr`` and ``pcg`` (DogLeg, which has neither
+``sparse_general`` nor ``pcg``, takes ``sparse_cholesky`` instead).
+``--platform`` picks the torch device: ``cuda`` (default) or ``cpu``. Asking
+for ``cuda`` on a machine without a card raises. ``--profile`` writes a
+``torch.profiler`` trace of the last solve under the system's temporary
+directory. Not ported yet, and raising ``NotImplementedError`` with their
+ROADMAP item: ``--dataset`` (A.10) and ``--jit`` (A.8).
 
 Usage:
     python -m apex_tpu_torch.cli.pose_graph --file graph.g2o
@@ -26,12 +26,13 @@ from __future__ import annotations
 
 import argparse
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 
-TRACE_PATH = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch" / "pose_graph_trace.json"
+TRACE_PATH = Path(tempfile.gettempdir()) / "apex_tpu_torch_profile" / "pose_graph_trace.json"
 
 
 def build_parser():
@@ -50,8 +51,8 @@ def build_parser():
         "--linear-solver", default="sparse_cholesky",
         choices=["sparse_cholesky", "sparse_qr", "sparse_general",
                  "dense_cholesky", "dense_qr", "pcg"],
-        help="linear solver tier (sparse_* ride the band; dense tiers for small "
-             "problems; sparse_general is not ported)")
+        help="linear solver tier (sparse_cholesky / sparse_qr ride the band; "
+             "sparse_general takes any sparsity; dense tiers for small problems)")
     p.add_argument("--max-iterations", type=int, default=100)
     p.add_argument("--cost-tolerance", type=float, default=1e-4)
     p.add_argument("--fix-first", action="store_true", help="fix the first vertex")

@@ -9,7 +9,7 @@
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,24 +33,50 @@ _SLOT_ORDER = ("pose", "landmark", "intrinsics")
 
 
 class ProjectionFactor(Factor):
-    """Only the bulk template form is ported: per-observation data goes
-    through ``Problem.add_residual_block_batch`` as stacked arrays ('obs',
-    and 'const_<slot>' for each slot that is not optimized)."""
+    """One observation of a landmark by a camera. The slots that are not
+    optimized are constants: pass them to the constructor (``pose=``,
+    ``landmark=``, ``intrinsics=``). ``template(camera, optimize)`` makes
+    the data-free instance for ``Problem.add_residual_block_batch``, whose
+    stacked arrays supply 'obs' and 'const_<slot>'."""
 
     kind = "projection"
 
-    def __init__(self, camera: CameraModel | str,
-                 optimize: Tuple[str, ...] | str = _SLOT_ORDER):
+    @classmethod
+    def template(cls, camera, optimize=_SLOT_ORDER):
+        return cls(camera, None, optimize)
+
+    def __init__(
+        self,
+        camera: CameraModel | str,
+        observation,
+        optimize: Tuple[str, ...] | str = _SLOT_ORDER,
+        *,
+        pose: Optional[np.ndarray] = None,
+        landmark: Optional[np.ndarray] = None,
+        intrinsics: Optional[np.ndarray] = None,
+    ):
         if isinstance(camera, str):
             camera = get_camera(camera)
         if isinstance(optimize, str):
             optimize = OPTIMIZE_MODES[optimize]
         self.camera = camera
         self.optimize = tuple(s for s in _SLOT_ORDER if s in optimize)
-
-    @classmethod
-    def template(cls, camera, optimize=_SLOT_ORDER):
-        return cls(camera, optimize)
+        self.observation = (None if observation is None
+                            else np.asarray(observation, dtype=np.float64).reshape(2))
+        consts = {"pose": pose, "landmark": landmark, "intrinsics": intrinsics}
+        self._const = {}
+        self._is_template = observation is None
+        for slot in _SLOT_ORDER:
+            if slot in self.optimize:
+                if consts[slot] is not None:
+                    raise ValueError(f"{slot} is optimized; do not pass a constant value")
+            elif consts[slot] is None:
+                if self._is_template:
+                    continue  # the bulk path supplies const_* arrays in data
+                raise ValueError(
+                    f"{slot} is not optimized; pass its constant value to the constructor")
+            else:
+                self._const[slot] = np.asarray(consts[slot], dtype=np.float64)
 
     def signature(self):
         return ("projection", self.camera.name, self.optimize)
@@ -64,9 +90,14 @@ class ProjectionFactor(Factor):
         return 2
 
     def data(self) -> Dict[str, np.ndarray]:
-        raise RuntimeError(
-            "a template ProjectionFactor carries no per-factor data; use "
-            "Problem.add_residual_block_batch")
+        if self._is_template:
+            raise RuntimeError(
+                "a template ProjectionFactor carries no per-factor data; use "
+                "Problem.add_residual_block_batch")
+        d = {"obs": self.observation}
+        for slot, v in self._const.items():
+            d[f"const_{slot}"] = v
+        return d
 
     def group_kernel(self):
         camera = self.camera

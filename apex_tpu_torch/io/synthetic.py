@@ -1,9 +1,9 @@
 """Synthetic datasets (counterpart of ``apex_tpu/io/synthetic.py``): the
-SE2 ring and manhattan pose graphs, the SE3 sphere pose graph and the
-bundle-adjustment generators. Host-side numpy; the group operations run
-through the port's own manifold functions in f64 on the CPU, with the same
-random draws in the same order, so a seed gives the same arrays as the JAX
-package. The 3D grid is ROADMAP A.6."""
+SE2 ring and manhattan pose graphs, the SE3 sphere and 3D-lattice pose
+graphs and the bundle-adjustment generators. Host-side numpy; the group
+operations run through the port's own manifold functions in f64 on the
+CPU, with the same random draws in the same order, so a seed gives the same
+arrays as the JAX package."""
 
 from __future__ import annotations
 
@@ -119,6 +119,64 @@ def synthetic_pose_graph_3d(
     g.edges_se3 = [Edge(int(src[i]), int(dst[i]), meas[i], info) for i in range(len(src))]
     est = _integrate(SE3, truth[0], meas[:n_odom])
     g.vertices_se3 = {i: est[i] for i in range(n_poses)}
+    return g
+
+
+def synthetic_pose_graph_grid3d(
+    nx: int = 10,
+    ny: int = 10,
+    nz: int = 10,
+    spacing: float = 1.0,
+    noise_t: float = 0.05,
+    noise_r: float = 0.01,
+    info_weight: float = 100.0,
+    seed: int = 0,
+) -> Graph:
+    """SE3 pose graph on a 3D lattice, the shape of the grid3D dataset: one
+    vertex per lattice point, relative-pose edges to the +x, +y and +z
+    neighbours. No 1-D ordering makes it banded (its RCM bandwidth is about
+    nx*ny blocks), so it takes the general-sparsity tier
+    (``linalg/sparse_general.py``). Initialized by perturbing the ground
+    truth, the first vertex left exact."""
+    rng = np.random.default_rng(seed)
+    ii, jj, kk = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij")
+    p = spacing * np.stack([ii, jj, kk], axis=-1).reshape(-1, 3).astype(float)
+    n = p.shape[0]
+    yaw = rng.uniform(-0.3, 0.3, n)
+    q = so3.exp(torch.from_numpy(np.stack([np.zeros(n), np.zeros(n), yaw], axis=1))).numpy()
+    truth = np.concatenate([p, q], axis=1)
+
+    def vid(a, b, c):
+        return (a * ny + b) * nz + c
+
+    src, dst = [], []
+    for a in range(nx):
+        for b in range(ny):
+            for c in range(nz):
+                v = vid(a, b, c)
+                if a + 1 < nx:
+                    src.append(v)
+                    dst.append(vid(a + 1, b, c))
+                if b + 1 < ny:
+                    src.append(v)
+                    dst.append(vid(a, b + 1, c))
+                if c + 1 < nz:
+                    src.append(v)
+                    dst.append(vid(a, b, c + 1))
+    src = np.asarray(src)
+    dst = np.asarray(dst)
+    rels = SE3.between(torch.from_numpy(truth[src]), torch.from_numpy(truth[dst]))
+    tau = np.concatenate([rng.normal(0, noise_t, (len(src), 3)),
+                          rng.normal(0, noise_r, (len(src), 3))], axis=1)
+    meas = SE3.plus(rels, torch.from_numpy(tau)).numpy()
+
+    info = np.diag([info_weight] * 6)
+    g = Graph()
+    g.edges_se3 = [Edge(int(src[i]), int(dst[i]), meas[i], info) for i in range(len(src))]
+    pert = np.concatenate([rng.normal(0, 0.1, (n, 3)), rng.normal(0, 0.02, (n, 3))], axis=1)
+    est = SE3.plus(torch.from_numpy(truth), torch.from_numpy(pert)).numpy()
+    est[0] = truth[0]
+    g.vertices_se3 = {i: est[i] for i in range(n)}
     return g
 
 

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-# Widest block bandwidth the banded path takes; the JAX package switches to
-# its general-sparsity tier above it (ROADMAP A.6 in the port).
+# Widest block bandwidth the banded path takes; above it LM's sparse_cholesky
+# switches to the general-sparsity tier (linalg/sparse_general.py).
 MAX_BANDWIDTH = 1536
 # The retry ladder: first shift BASE_REG * mean(diag), then 100x per stage.
 BASE_REG = 1e-10

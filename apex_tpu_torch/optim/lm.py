@@ -11,14 +11,19 @@ Each iteration runs eagerly on the problem's device and reads its scalars
 ``dense_cholesky`` (the default: dense H by scatter-add, Cholesky with the
 retry ladder), ``dense_qr`` (QR of the damped stacked Jacobian);
 ``banded_cholesky``, alias ``sparse_cholesky`` (pose graphs: band assembly
-and block cyclic reduction), and ``banded_qr``, alias ``sparse_qr`` (the
-same band, a QR sweep; ``dense_qr`` above a block bandwidth of 1536);
+and block cyclic reduction; above a block bandwidth of 1536 the general
+tier, when its plan is healthy), and ``banded_qr``, alias ``sparse_qr``
+(the same band, a QR sweep; ``dense_qr`` above a block bandwidth of 1536);
+``sparse_general`` (independent-set block elimination, any sparsity);
 ``schur_implicit``, alias ``iterative_schur``, and ``schur_explicit``,
 aliases ``sparse_schur`` and ``sparse_schur_complement`` (bundle
 adjustment), with ``schur`` / ``schur_auto`` choosing the explicit variant
 up to 4096 reduced camera DOF; ``pcg`` (matrix-free CG on the normal
-equations). ``sparse_general`` is ROADMAP A.6; ``mode="jit"``, a whole
-solve captured without host syncs, is ROADMAP A.8.
+equations). ``mode="jit"``, a whole solve captured without host syncs, is
+ROADMAP A.8.
+
+Damping, nu and the step quality are numpy scalars of the problem's dtype,
+updated in that dtype as the JAX package updates them in its compile dtype.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import time
 import weakref
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -106,6 +112,25 @@ class LevenbergMarquardtConfig:
         )
 
 
+def _np_float(cp: CompiledProblem):
+    """The numpy scalar type of the problem's dtype."""
+    return np.float64 if cp.dtype == torch.float64 else np.float32
+
+
+def damping_update(damping, nu, rho, accepted: bool, cfg: LevenbergMarquardtConfig):
+    """Nielsen's update of (damping, nu) in the dtype of the numpy scalar
+    ``damping``, with the JAX package's operations in its order: accepted,
+    damping *= max(1/3, 1 - (2 rho - 1)^3) clamped to [damping_min,
+    damping_max] and nu = 2; rejected, damping = min(damping nu,
+    damping_max) and nu *= 2."""
+    t = type(damping)
+    if accepted:
+        coff = t(2.0) * t(rho) - t(1.0)
+        damping = damping * np.maximum(t(1.0 / 3.0), t(1.0) - coff * coff * coff)
+        return np.clip(damping, t(cfg.damping_min), t(cfg.damping_max)), t(2.0)
+    return np.minimum(damping * t(nu), t(cfg.damping_max)), t(nu) * t(2.0)
+
+
 class LevenbergMarquardt:
     def __init__(self, config: Optional[LevenbergMarquardtConfig] = None):
         self.config = config or LevenbergMarquardtConfig()
@@ -132,6 +157,20 @@ class LevenbergMarquardt:
             # stacked-J QR, which is at least as rank-robust
             if banded.block_bandwidth(cp) > banded.MAX_BANDWIDTH:
                 solver_type = "dense_qr"
+        if solver_type == "sparse_general" or (
+                solver_type == "banded_cholesky" and cfg.banded_panel is None):
+            from ..linalg import banded
+            from ..linalg.sparse_general import GeneralSparseCholesky
+
+            # the general tier takes any pattern; sparse_cholesky switches
+            # to it when the band is panel-hostile (grid-like graphs), and
+            # falls through to the wide panel if its plan is not healthy
+            if solver_type == "sparse_general" or (
+                    banded.block_bandwidth(cp) > banded.MAX_BANDWIDTH
+                    and GeneralSparseCholesky.suitable(cp)):
+                gs = GeneralSparseCholesky(cp)
+                if gs.healthy() or solver_type == "sparse_general":
+                    return self._make_general_solve_fn(gs)
         if solver_type in ("banded_cholesky", "banded_qr"):
             return self._make_banded_solve_fn(cp, qr=solver_type == "banded_qr")
         if solver_type == "dense_cholesky":
@@ -142,10 +181,6 @@ class LevenbergMarquardt:
             return self._make_pcg_solve_fn(cp)
         if solver_type not in ("schur_explicit", "schur_implicit", "sparse_schur",
                                "schur", "schur_auto"):
-            if solver_type == "sparse_general":
-                raise NotImplementedError(
-                    "linear solver 'sparse_general' is not ported yet "
-                    "(ROADMAP A.6: general-sparsity tier)")
             raise ValueError(f"unknown linear solver {cfg.linear_solver_type!r}")
         from ..linalg.schur import SchurContext
 
@@ -203,6 +238,18 @@ class LevenbergMarquardt:
 
         return solve_pcg
 
+    @staticmethod
+    def _make_general_solve_fn(gs):
+        """The general-sparsity tier's exact solve; like the JAX package's,
+        it ignores ``use_jacobi_scaling``."""
+
+        def solve_general(values, damping, iteration, jacobi_scale):
+            dx, g, cost = gs.solve(values, damping)
+            return dx, g, cost, jacobi_scale, None
+
+        solve_general.general_sparse = gs
+        return solve_general
+
     def _make_banded_solve_fn(self, cp: CompiledProblem, qr: bool = False):
         """Band assembly, then block cyclic reduction or (``qr``) the banded
         QR sweep; the predicted reduction is left to the step (exact
@@ -210,13 +257,6 @@ class LevenbergMarquardt:
         from ..linalg import banded
 
         cfg = self.config
-        if cfg.banded_panel is None and not qr:
-            W = banded.block_bandwidth(cp)
-            if W > banded.MAX_BANDWIDTH:
-                raise NotImplementedError(
-                    f"block bandwidth {W} > {banded.MAX_BANDWIDTH}: the JAX package "
-                    "switches to its general-sparsity tier, which is not ported yet "
-                    "(ROADMAP A.6); set banded_panel to force a panel")
         asm = banded.BandedNormalAssembler(cp, block=cfg.banded_panel)
         if qr:
             from ..linalg.banded_qr import make_blocktri_qr_core
@@ -301,12 +341,14 @@ class LevenbergMarquardt:
         ccfg = cfg.convergence()
         solve_fn = self._make_solve_fn(cp)
 
+        t = _np_float(cp)
+
         def step(values, damping, nu, iteration, jacobi_scale):
             dx, g, current_cost, scale, predicted = solve_fn(
-                values, damping, iteration, jacobi_scale)
+                values, float(damping), iteration, jacobi_scale)
             if predicted is None:
                 # exact solve: 0.5 step^T (lambda step - g)
-                predicted = 0.5 * torch.sum(dx * (damping * dx - g))
+                predicted = 0.5 * torch.sum(dx * (float(damping) * dx - g))
             with record_function("lm.trial_cost"):
                 new_values = cp.apply_step(values, dx)
                 new_cost = cp.cost(new_values)
@@ -316,17 +358,12 @@ class LevenbergMarquardt:
                 torch.linalg.vector_norm(g), torch.linalg.vector_norm(dx),
             ]).tolist()
 
-            rho = compute_step_quality(current_cost, new_cost, predicted)
-            accepted = rho > 0.0
+            rho = compute_step_quality(t(current_cost), t(new_cost), t(predicted))
+            accepted = bool(rho > 0.0)
+            damping, nu = damping_update(damping, nu, rho, accepted, cfg)
             if accepted:
-                coff = 2.0 * rho - 1.0
-                damping = min(max(damping * max(1.0 / 3.0, 1.0 - coff * coff * coff),
-                                  cfg.damping_min), cfg.damping_max)
-                nu = 2.0
                 values, cost = new_values, new_cost
             else:
-                damping = min(damping * nu, cfg.damping_max)
-                nu = nu * 2.0
                 cost = current_cost
 
             status = check_convergence(
@@ -369,12 +406,14 @@ class LevenbergMarquardt:
 
     def _init_damping_state(self, cp: CompiledProblem, values):
         """The state threaded through ``step`` where LM's damping rides: a
-        float here; DogLeg packs its trust region and step cache."""
+        numpy scalar of the problem's dtype here; DogLeg packs its trust
+        region and step cache."""
         cfg = self.config
+        t = _np_float(cp)
         if cfg.damping == "auto":
-            lam0 = cfg.damping_tau * float(cp.normal_diag_max(values))
-            return min(max(lam0, cfg.damping_min), cfg.damping_max)
-        return float(cfg.damping if not isinstance(cfg.damping, str) else 1e-3)
+            lam0 = t(cfg.damping_tau) * t(float(cp.normal_diag_max(values)))
+            return np.clip(lam0, t(cfg.damping_min), t(cfg.damping_max))
+        return t(cfg.damping if not isinstance(cfg.damping, str) else 1e-3)
 
     def _optimize_python(self, cp: CompiledProblem) -> SolverResult:
         cfg = self.config
@@ -385,7 +424,7 @@ class LevenbergMarquardt:
             self._step_cache[cp] = self._make_step_fn(cp)
         step_fn = self._step_cache[cp]
         damping = self._init_damping_state(cp, values)
-        nu = 2.0
+        nu = _np_float(cp)(2.0)
         jacobi_scale = torch.ones(cp.total_dof, dtype=cp.dtype, device=cp.device)
 
         stats = [] if (cfg.collect_stats or cfg.verbose) else None

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's bundle-adjustment paths (implicit and explicit
 Schur) and pose-graph paths (SE3, SE2, the robust-loss sweep with a prior,
-the dense solvers, Gauss-Newton and DogLeg, sparse_qr, pcg, covariances)
-once on one CUDA card.
+the dense solvers, Gauss-Newton and DogLeg, sparse_qr, pcg, covariances,
+the general-sparsity tier) once on one CUDA card.
 
 Run from the repository root: ``python3 chip_smoke.py``. Phases, in order,
 each printing one JSON line; any failure raises and exits non-zero:
@@ -49,11 +49,46 @@ each printing one JSON line; any failure raises and exits non-zero:
     sweep losses on every edge and a ``ManifoldPriorFactor`` on the first
     pose, f64, ``sparse_cholesky``: converged with the final cost below
     0.6x the initial; L2, Huber(1.0) and Cauchy(1.0) also at the JAX
-    package's constants in 4 iterations.
+    package's constants in 4 iterations;
+11. explicit-Schur parity: ``synthetic_ba(8, 150)`` through
+    ``schur_explicit`` on the card and the CPU (same iterations, rtol 1e-8),
+    and within rtol 1e-6 of ``dense_cholesky`` and of the exact implicit
+    solve on the card;
+12. explicit-Schur full: phase 5's problem through ``schur``, f64 and f32,
+    three solves each with a profile over the ``schur.*`` spans. Gates: the
+    explicit variant chosen, RMSE below 0.55x, f64 within 2% of the
+    implicit solve's, one kernel launch per LM iteration;
+13. optimizers: DogLeg and Gauss-Newton on the sphere within rtol 1e-6 of
+    LM's cost, and card against CPU on the medium SE3 fixture;
+14. small solvers: ``sparse_qr`` and ``pcg`` at both medium fixtures'
+    certified costs, then ``sparse_qr`` on the M3500-shaped graph and the
+    sphere at the JAX package's constants;
+15. covariances: card against CPU on the medium fixture (1e-8), the banded
+    route against the dense one on the sphere (1e-6);
+16. general parity: the 6x6x4 lattice (``synthetic_pose_graph_grid3d``,
+    seed 1) through LM ``sparse_general`` with a dense core of at most 8
+    blocks, so with elimination levels, on the card and the CPU (same
+    iterations and status, rtol 1e-8); the medium SE3 fixture through
+    ``sparse_general`` on the card at its certified cost;
+17. general full: the 12^3 lattice (bench.py's grid3d rung: 1,728 poses,
+    4,752 edges) through LM ``sparse_general``, ``damping="auto"``,
+    ``cost_tolerance=1e-4``, f64 then f32, three solves each as phase 7
+    with a profile over the ``general.*`` spans. Gates: converged with more
+    than 50% reduction; in f64 the JAX package's 174.42628102979307 ->
+    10.614117258370733 in 3 iterations; f32 within one iteration and 1% of
+    f64. Prints the plan (levels, p and q per level, fill, R and R·d, plan
+    seconds), retry stages and the per-LM-iteration time against the
+    1,728-pose sphere through ``sparse_cholesky`` (bench.py's ratio);
+18. general auto: the 20^3 lattice (8,000 poses, D = 48,000) through LM
+    ``sparse_cholesky``, f64: its block bandwidth is above 1536, so the
+    solve must take the general tier with a healthy plan whose core has the
+    JAX package's 3,377 blocks, and converge with more than 50% reduction.
+    Prints the plan, the solve seconds and the peak memory of the dense
+    core (20,262 columns).
 
 The pose-graph paths launch no kernel of the port's own (the TPU reference
 ran them in XLA, outside Pallas): the landmark-block kernel, the one hand
-kernel, runs on the BA path only. Then the kernel summary line, and last
+kernel, runs on the BA paths only. Then the kernel summary line, and last
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without one.
 """
@@ -288,10 +323,16 @@ SWEEP = [("l2", ()), ("huber", (1.0,)), ("cauchy", (1.0,)), ("fair", (1.3998,)),
 SWEEP_COSTS = {"l2": (6145.86441008718, 16.063378445855403),
                "huber": (3246.84568247429, 16.063378445809057),
                "cauchy": (1390.0683695360126, 15.935114237585939)}
+# the JAX package on a CPU, f64, python mode: the 12^3 lattice through
+# sparse_general (bench.py's grid3d rung), and the core size of its plan for
+# the 20^3 lattice
+GRID12_INITIAL, GRID12_FINAL, GRID12_ITERATIONS = 174.42628102979307, 10.614117258370733, 3
+GRID20_CORE_BLOCKS = 3377
 PROFILE_SPANS = ("banded.linearize", "banded.assemble", "cr.eliminate", "cr.dense_fold",
                  "cr.back_substitute", "cr.residual", "cr.refine", "cr.retry", "lm.trial_cost",
                  "schur.assemble", "schur.pair_products", "schur.dense_solve",
-                 "schur.back_substitute")
+                 "schur.back_substitute", "general.assemble", "general.eliminate",
+                 "general.core", "general.back_substitute", "general.retry")
 
 
 def phase_pose_graph_parity():
@@ -842,6 +883,180 @@ def phase_covariance(sphere_graph):
         raise AssertionError(f"banded covariance blocks differ from dense by {worst}")
 
 
+def capped_general(base_cap):
+    """GeneralSparseCholesky with ``base_cap`` blocks of dense core at most,
+    so that a small graph runs elimination levels."""
+    from apex_tpu_torch.linalg import sparse_general as sg
+
+    class Capped(sg.GeneralSparseCholesky):
+        def __init__(self, cp, deg_cap=24, min_picked=32, **_):
+            super().__init__(cp, deg_cap=deg_cap, base_cap=base_cap, min_picked=min_picked)
+
+    return Capped
+
+
+def phase_general_parity():
+    """The general tier with elimination levels on a small lattice, card
+    against CPU; then the medium SE3 fixture at its certified cost on the
+    card."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.io import synthetic
+    from apex_tpu_torch.linalg import sparse_general as sg
+
+    problem = synthetic.synthetic_pose_graph_grid3d(6, 6, 4, seed=1).to_problem()
+    general = sg.GeneralSparseCholesky
+    sg.GeneralSparseCholesky = capped_general(8)
+    results, levels = {}, {}
+    try:
+        for device in ("cuda", "cpu"):
+            lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+                linear_solver_type="sparse_general", max_iterations=30, cost_tolerance=1e-6))
+            cp = problem.compile(dtype=torch.float64, device=device)
+            lm._step_cache[cp] = lm._make_step_fn(cp)
+            levels[device] = lm._step_cache[cp].solve_fn.general_sparse.sym.n_levels
+            results[device] = lm.optimize(cp)
+    finally:
+        sg.GeneralSparseCholesky = general
+    rc, rh = results["cuda"], results["cpu"]
+    if (rc.iterations, rc.status) != (rh.iterations, rh.status) or not rc.converged:
+        raise AssertionError(f"grid 6x6x4: cuda {rc.summary()} vs cpu {rh.summary()}")
+    if not levels["cuda"] == levels["cpu"] > 0:
+        raise AssertionError(f"grid 6x6x4: elimination levels {levels}")
+    np.testing.assert_allclose(rc.final_cost, rh.final_cost, rtol=1e-8)
+
+    fname, certified, _ = MEDIUM_SE3
+    cfg = apx.LevenbergMarquardtConfig(
+        linear_solver_type="sparse_general", max_iterations=100, cost_tolerance=1e-10,
+        parameter_tolerance=1e-14, gradient_tolerance=1e-14)
+    rm = apx.LevenbergMarquardt(cfg).optimize(apx.load_g2o(os.path.join(REPO, fname))
+                                              .to_problem().compile(dtype=torch.float64))
+    emit(dict(phase="general_parity", graph="grid3d 6x6x4 (seed 1, base_cap 8)",
+              levels=levels["cuda"], iterations=rc.iterations, status=rc.status.name,
+              cost_cuda=rc.final_cost, cost_cpu=rh.final_cost,
+              rel_diff=abs(rc.final_cost - rh.final_cost) / rh.final_cost,
+              medium_file=fname, medium_iterations=rm.iterations, medium_status=rm.status.name,
+              medium_cost=rm.final_cost, medium_rel_diff=abs(rm.final_cost - certified) / certified))
+    if not rm.converged:
+        raise AssertionError(f"{fname} sparse_general: {rm.summary()}")
+    np.testing.assert_allclose(rm.final_cost, certified, rtol=1e-8)
+
+
+def plan_line(gs):
+    """The printed shape of a general-tier plan."""
+    return dict(levels=gs.sym.n_levels,
+                level_p_q=[[len(lv.picked), int(lv.nbrs.shape[1])] for lv in gs.sym.levels],
+                fill_ratio=gs.sym.fill_ratio(), slots=gs.sym.n_slots, R=gs.R,
+                core_dof=gs.R * gs.dmax, healthy=gs.healthy())
+
+
+def phase_general_full():
+    """The 12^3 lattice (bench.py's grid3d rung) through LM sparse_general,
+    f64 then f32, three solves each; then the per-LM-iteration time against
+    the 1,728-pose sphere through sparse_cholesky, bench.py's ratio."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.io import synthetic
+
+    t0 = time.perf_counter()
+    graph = synthetic.synthetic_pose_graph_grid3d(12, 12, 12, seed=0)
+    problem = graph.to_problem()
+    trajectory = synthetic.synthetic_pose_graph_3d(n_poses=1728, rings=24, seed=0).to_problem()
+    emit(dict(phase="general_build", poses=graph.num_vertices, edges=graph.num_edges,
+              seconds=time.perf_counter() - t0))
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        cp = problem.compile(dtype=dtype, device="cuda")
+        lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+            linear_solver_type="sparse_general", max_iterations=100, cost_tolerance=1e-4,
+            damping="auto"))
+        t0 = time.perf_counter()
+        lm._step_cache[cp] = lm._make_step_fn(cp)  # the symbolic plan, timed apart
+        plan_s = time.perf_counter() - t0
+        gs = lm._step_cache[cp].solve_fn.general_sparse
+        res, timed, profiled, peak, lm_iterations = solve_three_times(lm, cp)
+        tcp = trajectory.compile(dtype=dtype, device="cuda")
+        banded_lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+            linear_solver_type="sparse_cholesky", max_iterations=100, cost_tolerance=1e-4,
+            damping="auto"))
+        tres, ttimed = timed_solves(banded_lm, tcp)
+        per_it = timed[1] / res.iterations
+        traj_per_it = ttimed[1] / tres.iterations
+        results[dtype] = res
+        emit(dict(phase="general_full", dtype=name, D=cp.total_dof, edges=graph.num_edges,
+                  plan_seconds=plan_s, **plan_line(gs), status=res.status.name,
+                  iterations=res.iterations, initial_cost=res.initial_cost,
+                  final_cost=res.final_cost, first_solve_seconds=timed[0],
+                  solve_seconds=timed[1], seconds_per_lm_iteration=per_it,
+                  lm_iterations_of_three_solves=lm_iterations,
+                  retry_stages_of_three_solves=gs.retry_stages, max_memory_allocated=peak,
+                  trajectory_status=tres.status.name, trajectory_iterations=tres.iterations,
+                  trajectory_solve_seconds=ttimed[1],
+                  trajectory_seconds_per_lm_iteration=traj_per_it,
+                  ratio_per_lm_iteration=per_it / traj_per_it, profile=profiled))
+        if not (res.converged and 1.0 - res.final_cost / res.initial_cost > 0.5):
+            raise AssertionError(f"grid3d {name}: {res.summary()} misses the 50% gate")
+        if dtype == torch.float64:
+            check_costs("grid3d f64", res, GRID12_INITIAL, GRID12_FINAL, GRID12_ITERATIONS)
+    r64, r32 = results[torch.float64], results[torch.float32]
+    if abs(r32.iterations - r64.iterations) > 1:
+        raise AssertionError(f"grid3d f32 {r32.summary()} vs f64 {r64.summary()}")
+    np.testing.assert_allclose(r32.final_cost, r64.final_cost, rtol=1e-2)
+
+
+def phase_general_auto():
+    """The 20^3 lattice through LM sparse_cholesky, f64: its block
+    bandwidth is above 1536, so the solve takes the general tier, whose
+    dense core (R blocks of 6) is the phase's memory."""
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.io import synthetic
+    from apex_tpu_torch.linalg import banded
+
+    start = time.perf_counter()
+    graph = synthetic.synthetic_pose_graph_grid3d(20, 20, 20, seed=0)
+    cp = graph.to_problem().compile(dtype=torch.float64, device="cuda")
+    build_s = time.perf_counter() - start
+    W = banded.block_bandwidth(cp)
+    lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+        linear_solver_type="sparse_cholesky", max_iterations=100, cost_tolerance=1e-4,
+        damping="auto"))
+    t0 = time.perf_counter()
+    lm._step_cache[cp] = lm._make_step_fn(cp)
+    plan_s = time.perf_counter() - t0
+    gs = getattr(lm._step_cache[cp].solve_fn, "general_sparse", None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = lm.optimize(cp)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    emit(dict(phase="general_auto", poses=graph.num_vertices, edges=graph.num_edges,
+              D=cp.total_dof, W=W, build_seconds=build_s, plan_seconds=plan_s,
+              **(plan_line(gs) if gs is not None else {}), status=res.status.name,
+              iterations=res.iterations, initial_cost=res.initial_cost,
+              final_cost=res.final_cost, solve_seconds=solve_s,
+              seconds_per_lm_iteration=solve_s / res.iterations,
+              retry_stages=gs.retry_stages if gs is not None else None,
+              max_memory_allocated=torch.cuda.max_memory_allocated(),
+              phase_seconds=time.perf_counter() - start))
+    if not W > banded.MAX_BANDWIDTH:
+        raise AssertionError(f"grid3d 20^3: block bandwidth {W}")
+    if gs is None or not gs.healthy():
+        raise AssertionError("grid3d 20^3: sparse_cholesky did not take the general tier")
+    if gs.R != GRID20_CORE_BLOCKS:
+        raise AssertionError(f"grid3d 20^3: core of {gs.R} blocks, the JAX package's "
+                             f"plan has {GRID20_CORE_BLOCKS}")
+    if not (res.converged and 1.0 - res.final_cost / res.initial_cost > 0.5):
+        raise AssertionError(f"grid3d 20^3: {res.summary()} misses the 50% gate")
+
+
 def main():
     import torch
 
@@ -884,6 +1099,9 @@ def main():
     phase_optimizers(sphere_problem)
     phase_small_solvers(sphere_problem, m3500_problem)
     phase_covariance(sphere_graph)
+    phase_general_parity()
+    phase_general_full()
+    phase_general_auto()
 
     main_shape = measured[(65_132, torch.float64)]
     emit({"kernels": [{

@@ -370,3 +370,83 @@ def test_covariances_card_match_cpu(card):
             assert got[n].shape == (6, 6)
             assert np.abs(got[n] - want[n]).max() <= 1e-8 * max(np.abs(want[n]).max(), 1e-300)
     assert np.abs(out[str(card)][0]["x0"]).max() == 0.0  # the fixed pose
+
+
+def _capped_general(base_cap):
+    from apex_tpu_torch.linalg import sparse_general as sg
+
+    class Capped(sg.GeneralSparseCholesky):
+        def __init__(self, cp, deg_cap=24, min_picked=32, **_):
+            super().__init__(cp, deg_cap=deg_cap, base_cap=base_cap, min_picked=min_picked)
+
+    return Capped
+
+
+def test_general_plan_tensors_on_the_card(card):
+    """Every plan tensor of the general tier is moved to the card once, at
+    construction."""
+    from apex_tpu_torch.linalg.sparse_general import GeneralSparseCholesky
+
+    cp = synthetic.synthetic_pose_graph_grid3d(4, 3, 3).to_problem().compile(device=card)
+    gs = GeneralSparseCholesky(cp, base_cap=8)
+    assert gs.sym.n_levels >= 1
+    tensors = [gs._h_dest, gs._g_dest, gs._diag_pin, gs._diag_slots_all, gs._real,
+               gs._core_i, gs._core_j, gs._core_slots, gs._base_ids]
+    tensors += [t for lv in gs._levels_dev for t in lv.values()]
+    assert all(t.device.type == "cuda" for t in tensors)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 5e-4)])
+def test_general_solve_card_matches_cpu(card, dtype, rtol):
+    """Assembly and one solve with elimination levels, card against CPU,
+    the gauge fixed by the first pose. f32: the CPU's f32 step is 1.8e-5
+    (of its largest entry) from the f64 one, so rounding alone moves it by
+    that much."""
+    from apex_tpu_torch.linalg.sparse_general import GeneralSparseCholesky
+
+    problem = synthetic.synthetic_pose_graph_grid3d(5, 4, 3, seed=0).to_problem(fix_first=True)
+    out = {}
+    for device in (card, "cpu"):
+        cp = problem.compile(dtype=dtype, device=device)
+        gs = GeneralSparseCholesky(cp, base_cap=8)
+        out[str(device)] = [t.cpu() for t in gs.solve(cp.initial_values(), 1e-3)]
+    for a, b in zip(out[str(card)], out["cpu"]):
+        assert (a - b).abs().max() <= rtol * max(float(b.abs().max()), 1e-300)
+
+
+@pytest.mark.parametrize("levels", [True, False], ids=["levels", "no_levels"])
+def test_general_lm_card_matches_cpu(card, levels, monkeypatch):
+    """LM sparse_general on the 6x6x4 grid: the same iterations and status
+    on the card and the CPU, final cost within rtol 1e-8."""
+    from apex_tpu_torch.linalg import sparse_general as sg
+
+    if levels:
+        monkeypatch.setattr(sg, "GeneralSparseCholesky", _capped_general(8))
+    problem = synthetic.synthetic_pose_graph_grid3d(6, 6, 4, seed=1).to_problem()
+    res = {}
+    for device in (card, "cpu"):
+        lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+            linear_solver_type="sparse_general", max_iterations=30, cost_tolerance=1e-6))
+        cp = problem.compile(dtype=torch.float64, device=device)
+        assert (lm._make_solve_fn(cp).general_sparse.sym.n_levels > 0) == levels
+        res[str(device)] = lm.optimize(cp)
+    rc, rh = res[str(card)], res["cpu"]
+    assert (rc.iterations, rc.status) == (rh.iterations, rh.status) and rc.converged
+    np.testing.assert_allclose(rc.final_cost, rh.final_cost, rtol=1e-8)
+
+
+def test_sparse_cholesky_switches_on_the_card(card):
+    """Above a 1536-column bandwidth sparse_cholesky takes the general tier
+    on the card as on the CPU."""
+    p = apx.Problem()
+    ident = np.array([0, 0, 0, 1.0, 0, 0, 0])
+    for i in range(300):
+        p.add_variable(f"x{i}", "SE3", ident)
+    for i in range(299):
+        p.add_residual_block([f"x{i}", f"x{i + 1}"], apx.BetweenFactor("SE3", ident))
+    p.add_residual_block(["x0", "x299"], apx.BetweenFactor("SE3", ident))
+    cp = p.compile(device=card, ordering="name")
+    lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+        linear_solver_type="sparse_cholesky", max_iterations=2))
+    assert lm._make_solve_fn(cp).general_sparse.healthy()
+    assert lm.optimize(cp).final_cost == 0.0

@@ -314,3 +314,39 @@ def test_modes_and_exports():
     for name in ("GaussNewtonConfig", "DogLegConfig"):
         jcfg, tcfg = getattr(jax_apx, name)(), getattr(apx, name)()
         assert vars(jcfg) == vars(tcfg)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_lm_damping_update_matches_jax_bitwise(dtype):
+    """LM's damping and nu updates in the problem's dtype: over a grid of
+    (damping, nu, rho) the port's update equals the JAX package's step
+    (apex_tpu/optim/lm.py, the lines from ``coff`` to ``new_nu``, jitted)
+    bit for bit, in f32 and in f64."""
+    import jax
+
+    from apex_tpu_torch.optim.lm import damping_update
+
+    cfg = apx.LevenbergMarquardtConfig()
+
+    @jax.jit
+    def jax_update(damping, nu, rho):
+        accepted = rho > 0.0
+        coff = 2.0 * rho - 1.0
+        damping_acc = jnp.clip(damping * jnp.maximum(1.0 / 3.0, 1.0 - coff**3),
+                               cfg.damping_min, cfg.damping_max)
+        damping_rej = jnp.minimum(damping * nu, cfg.damping_max)
+        return (jnp.where(accepted, damping_acc, damping_rej),
+                jnp.where(accepted, 2.0, nu * 2.0))
+
+    grid = np.stack(np.meshgrid(
+        [1e-13, 2.4e-10, 3.7e-3, 0.77, 5e11, 1e12],
+        [2.0, 16.0, 2.0 ** 40],
+        [-1.3, -1e-9, 0.0, 1e-7, 0.1234567, 0.5, 0.7314, 0.999999, 1.0, 1.5, 37.0],
+        indexing="ij"), axis=-1).reshape(-1, 3).astype(dtype)
+    jd, jn = (np.asarray(a) for a in jax_update(*(jnp.asarray(c) for c in grid.T)))
+    assert jd.dtype == jn.dtype == dtype
+    for (damping, nu, rho), ref_d, ref_n in zip(grid, jd, jn):
+        d, n = damping_update(damping, nu, rho, bool(rho > 0.0), cfg)
+        assert type(d) is type(n) is dtype
+        assert d.tobytes() == ref_d.tobytes() and n.tobytes() == ref_n.tobytes(), (
+            damping, nu, rho, d, ref_d)

@@ -106,3 +106,67 @@ def test_flat_layout_matches():
     assert len(tcp.groups) == 1 and tcp.groups[0].weights is None
     np.testing.assert_allclose(float(tcp.cost(tcp.initial_values())),
                                float(jcp.cost(jcp.initial_values())), rtol=1e-12)
+
+
+def _per_block_problem(pkg, factor_cls, ds, mode):
+    """``ds`` as one ``add_residual_block`` per observation, in the bulk
+    build's (landmark, camera) order; the slots that are not optimized are
+    constructor constants."""
+    from apex_tpu_torch.factors.projection import OPTIMIZE_MODES
+
+    optimize = OPTIMIZE_MODES[mode]
+    p = pkg.Problem()
+    names = {"pose": "pose_{:04d}", "landmark": "pt_{:05d}", "intrinsics": "intr_{:04d}"}
+    values = {"pose": ds.camera_se3(), "landmark": ds.points, "intrinsics": ds.intrinsics()}
+    manifolds = {"pose": "SE3", "landmark": "R3", "intrinsics": "R3"}
+    for slot in optimize:
+        for i, v in enumerate(values[slot]):
+            p.add_variable(names[slot].format(i), manifolds[slot], v)
+    order = np.lexsort((ds.cam_indices, ds.point_indices))
+    for k in order:
+        row = {"pose": ds.cam_indices[k], "landmark": ds.point_indices[k],
+               "intrinsics": ds.cam_indices[k]}
+        consts = {s: values[s][row[s]] for s in names if s not in optimize}
+        p.add_residual_block([names[s].format(row[s]) for s in optimize],
+                             factor_cls("bal_pinhole", ds.observations[k], mode, **consts))
+    return p
+
+
+@pytest.mark.parametrize("mode", ["self_calibration", "bundle_adjustment"])
+def test_per_block_build_matches_bulk_and_apex_tpu(mode):
+    """ProjectionFactor takes the JAX package's constructor: a problem built
+    one block at a time gives the bulk build's residuals and cost, and
+    apex_tpu's for the same blocks."""
+    import apex_tpu as jax_apx
+    import apex_tpu_torch as apx
+    from apex_tpu.factors.projection import ProjectionFactor as JaxProjectionFactor
+    from apex_tpu_torch.factors.projection import ProjectionFactor
+
+    ds = synthetic.synthetic_ba(n_cameras=4, n_points=20, seed=2)
+    tcp = _per_block_problem(apx, ProjectionFactor, ds, mode).compile(dtype=torch.float64, device="cpu")
+    jcp = _per_block_problem(jax_apx, JaxProjectionFactor, ds, mode).compile(dtype=np.float64)
+    bulk = build_ba_problem(ds, mode=mode, loss=None, fix_first_camera=False,
+                            layout="flat").compile(dtype=torch.float64, device="cpu")
+    assert len(tcp.groups) == 1 and tcp.groups[0].count == ds.num_observations
+    r = tcp.residual_vector(tcp.initial_values()).numpy()
+    np.testing.assert_allclose(r, bulk.residual_vector(bulk.initial_values()).numpy(),
+                               rtol=1e-12, atol=1e-9)
+    np.testing.assert_allclose(r, np.asarray(jcp.residual_vector(jcp.initial_values())),
+                               rtol=1e-11, atol=1e-9)
+    np.testing.assert_allclose(float(tcp.cost(tcp.initial_values())),
+                               float(jcp.cost(jcp.initial_values())), rtol=1e-12)
+
+
+def test_projection_factor_checks_its_constants():
+    from apex_tpu_torch.factors.projection import ProjectionFactor
+
+    obs = np.array([1.0, 2.0])
+    with pytest.raises(ValueError, match="pass its constant value"):
+        ProjectionFactor("bal_pinhole", obs, "bundle_adjustment")
+    with pytest.raises(ValueError, match="do not pass a constant"):
+        ProjectionFactor("bal_pinhole", obs, "self_calibration", landmark=np.zeros(3))
+    f = ProjectionFactor("bal_pinhole", obs, "only_pose", landmark=np.ones(3),
+                         intrinsics=np.array([500.0, 0.0, 0.0]))
+    assert sorted(f.data()) == ["const_intrinsics", "const_landmark", "obs"]
+    with pytest.raises(RuntimeError, match="no per-factor data"):
+        ProjectionFactor.template("bal_pinhole", "only_pose").data()
