@@ -13,6 +13,7 @@ NaN reaches the output. ``_EPS`` and ``_TINY`` are f64 constants: in f32
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -190,10 +191,20 @@ _KERNELS = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _params_tensor(params: tuple, dtype, device) -> torch.Tensor:
+    """A loss's parameter tuple as a tensor, built once per dtype and device
+    (a host-to-device copy, which a captured CUDA graph cannot hold)."""
+    return torch.tensor(params, dtype=dtype, device=device)
+
+
 def evaluate(kind: str, params, s):
     """Evaluate loss ``kind`` elementwise: s (...,) -> (rho, rho', rho'')."""
     fn, nparams = _KERNELS[kind]
-    params = torch.as_tensor(params, dtype=s.dtype, device=s.device)
+    if isinstance(params, tuple):
+        params = _params_tensor(params, s.dtype, s.device)
+    else:
+        params = torch.as_tensor(params, dtype=s.dtype, device=s.device)
     if nparams and params.ndim == 1 and params.shape[0] == nparams:
         params = params.expand(s.shape + (nparams,))
     return fn(s, params)

@@ -8,8 +8,11 @@ conditioned regularized inverse of symmetric 3x3 blocks, ``[P,3,3] ->
 [P,3,3]``.
 
 ``invert_landmark_blocks`` launches the kernel for every CUDA tensor, f32
-and f64, at every size, and counts each launch in ``launches``. It takes the
-plain version only for a tensor on the CPU. The kernel is built with ``nvcc``
+and f64, at every size, and counts each launch in ``launches``. Under CUDA
+graph capture the launch is recorded into the graph, not made: it counts in
+``captured`` instead, and each replay of that graph counts its recorded
+launches (``optim/graphs.py``). It takes the plain version only for a
+tensor on the CPU. The kernel is built with ``nvcc``
 into ``build/apex_tpu_torch/`` at first use and bound with ``ctypes``.
 """
 
@@ -30,8 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 # Kernel launches made by invert_landmark_blocks since import (or since a
-# caller last set it to 0).
+# caller last set it to 0), and launches it recorded into CUDA graphs.
 launches = 0
+captured = 0
 
 # Blocks per tile of the kernel (its kThreads): the bulk copies move whole
 # tiles, and the masked edge takes the last P mod TILE blocks.
@@ -169,7 +173,7 @@ def invert_landmark_blocks(Hpp):
     """[P,3,3] symmetric blocks -> regularized inverses [P,3,3]. A CUDA
     tensor goes through the kernel (contiguous, 16-byte aligned, f32 or f64
     required); a CPU tensor through the plain version."""
-    global launches
+    global launches, captured
     if Hpp.device.type == "cpu":
         return invert_landmark_blocks_plain(Hpp)
     if Hpp.device.type != "cuda":
@@ -192,5 +196,8 @@ def invert_landmark_blocks(Hpp):
     err = fn(Hpp.data_ptr(), out.data_ptr(), P, index, _stream(index))
     if err != 0:
         raise RuntimeError(f"invert_landmark_blocks kernel launch failed: CUDA error {err}")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out

@@ -16,7 +16,10 @@ is then block-tridiagonal, and
   the last ~1.5k DOF are folded into one dense Cholesky.
 
 A failed Cholesky gives NaN for its batch entry, never an exception: the
-5-stage retry ladder reads the solve's ``isfinite``. Spans named
+5-stage retry ladder tests the solve's ``isfinite``. The refinement gate
+and the ladder are ``graphs.cond_update`` / ``graphs.ladder``, the
+reference's ``lax.cond`` and ``while_loop``: a host read each in python
+mode, a branch between graphs in a captured jit step. Spans named
 ``banded.*`` and ``cr.*`` mark the layers for ``torch.profiler``.
 """
 
@@ -25,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.profiler import record_function
+
+from ..optim.graphs import cond_update, ladder
 
 # Widest block bandwidth the banded path takes; above it LM's sparse_cholesky
 # switches to the general-sparsity tier (linalg/sparse_general.py).
@@ -88,7 +93,8 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
       most.
 
     Each level reads back nothing; a solve reads back one flag for the
-    refinement and one per retry test."""
+    refinement and one per retry test. ``damping`` is a number or a 0-d
+    tensor."""
     n = -(-D // m)
     f64 = dtype == torch.float64
     if base_blocks is None:
@@ -162,8 +168,12 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
         return xe.reshape(-1)[:n * m]
 
     def solve_blocks(Dg0, Cg, bp, damping=None):
-        damp = torch.tensor(0.0 if damping is None else damping, dtype=dtype,
-                            device=Dg0.device)
+        if isinstance(damping, torch.Tensor):
+            damp = damping.to(dtype)
+        else:
+            # a fill, not a host-to-device copy: capture forbids the latter
+            damp = torch.full((), 0.0 if damping is None else damping, dtype=dtype,
+                              device=Dg0.device)
         # mean diagonal magnitude for the retry ladder's first shift
         trace_d = torch.diagonal(Dg0, dim1=-2, dim2=-1).sum() / D + damp
         eye = torch.eye(m, dtype=dtype, device=Dg0.device)
@@ -184,22 +194,26 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
             Dgs = Dg0 + shift * eye
             x = solve_once(Dgs, Cg, bp)
             res, res2 = residual2(Dgs, x)
-            if bool(res2 > refine_rtol ** 2 * bb):
+
+            def refine(x, res, res2):
                 with record_function("cr.refine"):
                     x = x + solve_once(Dgs, Cg, res)
-                    res, res2 = residual2(Dgs, x)
+                    return (x, *residual2(Dgs, x))
+
+            x, res, res2 = cond_update(res2 > refine_rtol ** 2 * bb, refine, x, res, res2)
             return x, res2
 
-        x, res2 = attempt(damp)
         bad2 = retry_rtol ** 2 * bb
-        reg = torch.zeros((), dtype=dtype, device=Dg0.device)
-        for stage in range(RETRY_STAGES):
-            if not bool(~torch.isfinite(x).all() | (res2 > bad2)):
-                break
+
+        def retry(stage, x, res2, reg):
             reg = BASE_REG * trace_d if stage == 0 else reg * 100.0
             with record_function("cr.retry"):
-                x, res2 = attempt(damp + reg)
-        return x
+                return (*attempt(damp + reg), reg)
+
+        x, res2 = attempt(damp)
+        reg = torch.zeros((), dtype=dtype, device=Dg0.device)
+        return ladder(lambda x, res2, reg: ~torch.isfinite(x).all() | (res2 > bad2),
+                      retry, RETRY_STAGES, x, res2, reg)[0]
 
     levels, nn = 0, n
     while nn > base_blocks:

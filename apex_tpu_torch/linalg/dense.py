@@ -4,14 +4,16 @@
 ``covariance_from_hessian`` inverts H for the covariance blocks.
 
 A Cholesky that fails gives NaN, never an exception (``banded._cholesky``:
-``cholesky_ex`` with NaN where ``info != 0``), and the retry ladder reads
-``isfinite(dx)``, one read-back per test.
+``cholesky_ex`` with NaN where ``info != 0``), and the retry ladder
+(``graphs.ladder``) tests ``isfinite(dx)``: one read-back per test, or in a
+captured jit step a branch between graphs.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..optim.graphs import ladder
 from .banded import BASE_REG, RETRY_STAGES, _cholesky
 
 
@@ -36,13 +38,14 @@ def solve_cholesky_with_retry(H, g, damping=None):
     RETRY_STAGES times at most."""
     eye = _eye(H)
     Hd = H + damping * eye if damping is not None else H
-    dx = _cho_solve(Hd, -g)
-    for stage in range(RETRY_STAGES):
-        if bool(torch.isfinite(dx).all()):
-            break
+
+    def retry(stage, dx, reg):
         reg = BASE_REG * torch.trace(Hd) / H.shape[0] if stage == 0 else reg * 100.0
-        dx = _cho_solve(Hd + reg * eye, -g)
-    return dx
+        return _cho_solve(Hd + reg * eye, -g), reg
+
+    dx = _cho_solve(Hd, -g)
+    reg = torch.zeros((), dtype=H.dtype, device=H.device)
+    return ladder(lambda dx, reg: ~torch.isfinite(dx).all(), retry, RETRY_STAGES, dx, reg)[0]
 
 
 def solve_qr(r, J, damping=None):

@@ -27,6 +27,13 @@ floored by ``pp_shift_floor`` (1e-4 in f32), in both variants.
 ``index_add_`` on CUDA sums with atomics in no fixed order, so results
 differ from the JAX package's sorted segment sums, and from run to run, by
 rounding.
+
+Damping and the LM iteration may be device tensors (jit mode). The
+explicit variant's retry ladder is ``graphs.ladder``; with ``sync_free``
+(jit mode) PCG's continue flag is a ``graphs.cond_update`` per
+``graphs.PCG_CHUNK`` iterations, each iteration masked by a done flag that
+freezes once set, as the reference's ``while_loop``; the preconditioner's
+``eigh`` runs outside captured graphs (``graphs.uncaptured``).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from torch.profiler import record_function
 
 from ..core.problem import CompiledProblem
 from ..kernels.landmark_blocks import invert_landmark_blocks
+from ..optim import graphs
 from .dense import solve_cholesky_with_retry
 from .utils import bmv as _bmv
 from .utils import spd_clamped_inv
@@ -116,6 +124,7 @@ class SchurContext:
         pcg_forcing: bool = True,
         pp_shift_floor: Optional[float] = None,
         pcg_q_tolerance: Optional[float] = None,
+        sync_free: bool = False,
     ):
         if variant not in ("sparse", "iterative"):
             raise ValueError(f"unknown Schur variant {variant!r}; 'sparse' or 'iterative'")
@@ -123,6 +132,7 @@ class SchurContext:
             raise ValueError(f"unknown preconditioner {preconditioner!r}")
         self.cp = cp
         self.variant = variant
+        self.sync_free = sync_free
         self.preconditioner = preconditioner
         self.pcg_max_iterations = pcg_max_iterations
         self.pcg_tolerance = pcg_tolerance
@@ -298,8 +308,11 @@ class SchurContext:
     # ------------------------------------------------------------------
 
     def _pp_shift(self, damping):
-        """LM damping floored by the landmark regularization floor."""
+        """LM damping floored by the landmark regularization floor (a number
+        or a 0-d tensor, as ``damping``)."""
         if self.pp_shift_floor > 0.0:
+            if isinstance(damping, torch.Tensor):
+                return torch.clamp_min(damping, self.pp_shift_floor)
             return max(damping, self.pp_shift_floor)
         return damping
 
@@ -371,11 +384,13 @@ class SchurContext:
             for plan, W in zip(self.couplings, Ws):
                 Y = W @ Hpp_inv[plan.lm]  # [K, De, 3]
                 acc.index_add_(0, plan.ent, -(Y @ W.transpose(1, 2)))
-        return spd_clamped_inv(acc)
+        # eigh reads its error flag back: not capturable
+        return graphs.uncaptured(spd_clamped_inv, acc)
 
     def _pcg(self, apply_S, apply_M, b, rtol=None, max_iter=None, x0=None):
         """Block-preconditioned conjugate gradients with f64 recurrence
-        scalars. The loop runs on the host and reads one flag per iteration.
+        scalars. The loop runs on the host and reads one flag per iteration;
+        with ``sync_free`` it reads one per ``graphs.PCG_CHUNK`` iterations.
 
         ``x0`` warm-starts from the previous LM iteration's camera step. It
         is guarded: if ||S x0 - b|| is not below ||b|| (a damping jump, a
@@ -399,27 +414,25 @@ class SchurContext:
             better = dot(r_w, r_w) < bb
             x = torch.where(better, x0, torch.zeros_like(x0))
             r = torch.where(better, r_w, b)
-            it_off = 1
         else:
-            x, r, it_off = torch.zeros_like(b), b, 0
+            x, r = torch.zeros_like(b), b.clone()
         z = apply_M(r)
-        p = z
+        p = z.clone()
         rz = dot(r, z)
-        if q_tol is not None:
-            Q0 = Qn = Qp = q_of(x, r)
+        Q0 = Qn = Qp = q_of(x, r) if q_tol is not None else None
 
-        it = it_off
-        while it < max_iter + it_off:
-            go = dot(r, r) > tol2
-            if q_tol is not None and it - it_off >= 2:
+        def go(k, r, Qp, Qn):
+            """Whether iteration k (counted from this call's start) runs."""
+            more = dot(r, r) > tol2
+            if q_tol is not None and k >= 2:
                 # Nash-Sofer: stop once n (Q_n - Q_{n-1}) / (Q_n - Q_0) < q_tol,
                 # progress measured from this call's own starting model value
-                n = float(it - it_off)
                 dq = Qn - Q0
-                zeta = n * (Qn - Qp) / torch.where(dq == 0, -torch.ones_like(dq), dq)
-                go = go & (zeta >= q_tol)
-            if not bool(go):
-                break
+                zeta = float(k) * (Qn - Qp) / torch.where(dq == 0, -torch.ones_like(dq), dq)
+                more = more & (zeta >= q_tol)
+            return more
+
+        def iterate(x, r, p, rz, Qp, Qn):
             Sp = apply_S(p)
             denom = dot(p, Sp)
             alpha = (rz / torch.where(denom == 0, torch.ones_like(denom), denom)).to(b.dtype)
@@ -429,10 +442,39 @@ class SchurContext:
             rz_new = dot(r, z)
             beta = (rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)).to(b.dtype)
             p = z + beta * p
-            rz = rz_new
             if q_tol is not None:
                 Qp, Qn = Qn, q_of(x, r)
-            it += 1
+            return x, r, p, rz_new, Qp, Qn
+
+        if not self.sync_free:
+            for k in range(max_iter):
+                if not bool(go(k, r, Qp, Qn)):
+                    break
+                x, r, p, rz, Qp, Qn = iterate(x, r, p, rz, Qp, Qn)
+            return x
+
+        if q_tol is not None:
+            Qn, Qp = Qn.clone(), Qp.clone()
+        else:
+            # unused slots of the loop state
+            Qn, Qp = torch.zeros_like(rz), torch.zeros_like(rz)
+        running = torch.ones((), dtype=torch.bool, device=b.device)
+
+        def chunk(k0, k1):
+            def body(x, r, p, rz, Qp, Qn, running):
+                for k in range(k0, k1):
+                    running = running & go(k, r, Qp, Qn)
+                    x, r, p, rz, Qp, Qn = graphs.masked_update(
+                        running, iterate, x, r, p, rz, Qp, Qn)
+                return x, r, p, rz, Qp, Qn, running
+            return body
+
+        for k0 in range(0, max_iter, graphs.PCG_CHUNK):
+            k1 = min(k0 + graphs.PCG_CHUNK, max_iter)
+            # the chunk's first test: a finished PCG stays finished
+            running = running & go(k0, r, Qp, Qn)
+            x, r, p, rz, Qp, Qn, running = graphs.cond_update(
+                running, chunk(k0, k1), x, r, p, rz, Qp, Qn, running)
         return x
 
     def _x0_reduced(self, dx_prev):
@@ -445,8 +487,16 @@ class SchurContext:
 
     def pcg_rtol(self, iteration):
         """The forcing sequence: loose PCG solves while LM is far from the
-        optimum, tightening geometrically to the floor."""
-        if not self.pcg_forcing or iteration is None or iteration < 0:
+        optimum, tightening geometrically to the floor. On a device
+        iteration counter the same f64 values as a 0-d tensor (0.1 * 2^-it
+        is exact in f64)."""
+        if not self.pcg_forcing or iteration is None:
+            return self.pcg_rtol_floor
+        if isinstance(iteration, torch.Tensor):
+            scaled = torch.ldexp(torch.full((), 0.1, dtype=torch.float64,
+                                            device=iteration.device), -iteration)
+            return torch.clamp(scaled, self.pcg_rtol_floor, 0.1)
+        if iteration < 0:
             return self.pcg_rtol_floor
         return min(max(0.1 * 2.0 ** (-iteration), self.pcg_rtol_floor), 0.1)
 

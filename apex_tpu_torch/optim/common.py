@@ -1,8 +1,10 @@
 """Shared optimizer machinery (counterpart of ``apex_tpu/optim/common.py``):
 status codes, convergence configuration and check, step quality, results.
 
-The host loop reads each step's scalars once, so the convergence check and
-the step quality are plain functions of Python floats here.
+Python mode reads each step's scalars once, so its convergence check and
+step quality are plain functions of Python floats; ``mode="jit"`` uses
+their device forms (``*_t``), nested ``torch.where`` on 0-d tensors in the
+problem's dtype, as the JAX package computes them under jit.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import math
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 
 class Status(enum.IntEnum):
@@ -97,6 +100,54 @@ def compute_step_quality(current_cost: float, new_cost: float,
     if abs(predicted_reduction) < 1e-15:
         return 1.0 if actual > 0.0 else 0.0
     return actual / predicted_reduction
+
+
+def check_convergence_t(
+    *,
+    iteration,
+    current_cost,
+    new_cost,
+    parameter_norm,
+    parameter_update_norm,
+    gradient_norm,
+    step_accepted,
+    cfg: ConvergenceConfig,
+    trust_region_radius: Optional[float] = None,
+):
+    """``check_convergence`` on 0-d device tensors (``iteration`` an integer
+    tensor): the status as a 0-d int32 tensor, read by no one on the host."""
+    inval = ~(torch.isfinite(new_cost) & torch.isfinite(parameter_update_norm)
+              & torch.isfinite(gradient_norm))
+    max_iter = iteration + 1 >= cfg.max_iterations
+    grad_ok = gradient_norm < cfg.gradient_tolerance
+    rel_step_tol = cfg.parameter_tolerance * (parameter_norm + cfg.parameter_tolerance)
+    param_ok = (iteration > 0) & (parameter_update_norm <= rel_step_tol)
+    rel_change = torch.abs(current_cost - new_cost) / torch.clamp_min(current_cost, 1e-10)
+    cost_ok = (iteration > 0) & (rel_change < cfg.cost_tolerance)
+    # in the reference's order: the first test that holds decides
+    checks = [(inval, Status.INVALID_NUMERICAL_VALUES),
+              (max_iter, Status.MAX_ITERATIONS_REACHED),
+              (~step_accepted, Status.RUNNING),
+              (grad_ok, Status.GRADIENT_TOLERANCE_REACHED),
+              (param_ok, Status.PARAMETER_TOLERANCE_REACHED),
+              (cost_ok, Status.COST_TOLERANCE_REACHED)]
+    if cfg.min_cost_threshold is not None:
+        checks.append((new_cost < cfg.min_cost_threshold, Status.MIN_COST_THRESHOLD_REACHED))
+    if trust_region_radius is not None and trust_region_radius < cfg.min_trust_region_radius:
+        checks.append((torch.ones_like(inval), Status.TRUST_REGION_RADIUS_TOO_SMALL))
+    status = torch.full_like(iteration, int(Status.RUNNING), dtype=torch.int32)
+    for hit, code in reversed(checks):
+        status = torch.where(hit, torch.full_like(status, int(code)), status)
+    return status
+
+
+def compute_step_quality_t(current_cost, new_cost, predicted_reduction):
+    """``compute_step_quality`` on 0-d device tensors."""
+    actual = current_cost - new_cost
+    tiny = torch.abs(predicted_reduction) < 1e-15
+    fallback = (actual > 0.0).to(actual.dtype)
+    safe = torch.where(tiny, torch.ones_like(predicted_reduction), predicted_reduction)
+    return torch.where(tiny, fallback, actual / safe)
 
 
 @dataclasses.dataclass

@@ -126,6 +126,11 @@ class DogLeg(LevenbergMarquardt):
         # steps taken from the cache, over this object's solves
         self.reused_steps = 0
 
+    def _optimize_jit(self, cp: CompiledProblem):
+        raise NotImplementedError(
+            "DogLeg's mode='jit' (its fresh/reuse branch on the device) is ROADMAP A.8b; "
+            "DogLeg runs in mode='python'")
+
     def _hessian_functions(self, cp: CompiledProblem):
         """(assemble, hsolve, hmatvec) for the configured solver: the
         Hessian as a dense [D, D] matrix, or as the block-tridiagonal

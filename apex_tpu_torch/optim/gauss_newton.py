@@ -4,6 +4,8 @@ convergence test and linear solvers.
 
 A gauge-free graph makes the undamped H singular: the Cholesky fails, and
 the solvers' retry ladders carry the step on an escalating diagonal shift.
+``mode="jit"`` runs LM's device loop with the step below
+(``_make_device_step``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch
 from torch.profiler import record_function
 
 from ..core.problem import CompiledProblem
-from .common import ConvergenceConfig, check_convergence
+from . import graphs
+from .common import ConvergenceConfig, check_convergence, check_convergence_t
 from .lm import LevenbergMarquardt, LevenbergMarquardtConfig
 
 
@@ -102,4 +105,37 @@ class GaussNewton(LevenbergMarquardt):
             return new_values, damping, nu, new_cost, status, scale, metrics
 
         step.solve_fn = solve_fn
+        return step
+
+    def _make_device_step(self, cp: CompiledProblem):
+        """The reference's GN ``step`` on jit state: every step applied, the
+        status a device tensor."""
+        ccfg = self.config.convergence()
+        solve_fn = self._make_solve_fn(cp, sync_free=True)
+        n_pools = len(cp.pools)
+
+        def step(*state):
+            values = state[:n_pools]
+            damping, nu, _, iteration, _, jacobi_scale, _, _, rho, n_succ, n_fail, cost0 = \
+                state[n_pools:]
+            dx, g, current_cost, scale, _ = solve_fn(values, 0.0, iteration, jacobi_scale)
+            with record_function("lm.trial_cost"):
+                new_values = cp.apply_step(values, dx)
+                new_cost = cp.cost(new_values)
+            gradient_norm = torch.linalg.vector_norm(g)
+            step_norm = torch.linalg.vector_norm(dx)
+            status = check_convergence_t(
+                iteration=iteration,
+                current_cost=current_cost,
+                new_cost=new_cost,
+                parameter_norm=cp.parameter_norm(new_values),
+                parameter_update_norm=step_norm,
+                gradient_norm=gradient_norm,
+                step_accepted=torch.ones_like(iteration, dtype=torch.bool),
+                cfg=ccfg,
+            )
+            return graphs.assign(state, (
+                *new_values, damping, nu, new_cost, iteration + 1, status, scale,
+                gradient_norm, step_norm, torch.ones_like(rho), n_succ + 1, n_fail, cost0))
+
         return step

@@ -1,29 +1,38 @@
 """Levenberg-Marquardt with Nielsen damping (counterpart of
-``apex_tpu/optim/lm.py``), python loop mode.
+``apex_tpu/optim/lm.py``).
 
 - accepted step: lambda *= max(1/3, 1 - (2 rho - 1)^3), nu = 2;
   rejected: lambda *= nu, nu *= 2; clamped to [damping_min, damping_max]
 - accept iff rho > 0, exact rollback on rejection
 - convergence checked after each iteration in the reference's order
 
-Each iteration runs eagerly on the problem's device and reads its scalars
-(costs, norms, predicted reduction) back once. The linear solvers:
-``dense_cholesky`` (the default: dense H by scatter-add, Cholesky with the
-retry ladder), ``dense_qr`` (QR of the damped stacked Jacobian);
-``banded_cholesky``, alias ``sparse_cholesky`` (pose graphs: band assembly
-and block cyclic reduction; above a block bandwidth of 1536 the general
-tier, when its plan is healthy), and ``banded_qr``, alias ``sparse_qr``
-(the same band, a QR sweep; ``dense_qr`` above a block bandwidth of 1536);
-``sparse_general`` (independent-set block elimination, any sparsity);
-``schur_implicit``, alias ``iterative_schur``, and ``schur_explicit``,
-aliases ``sparse_schur`` and ``sparse_schur_complement`` (bundle
-adjustment), with ``schur`` / ``schur_auto`` choosing the explicit variant
-up to 4096 reduced camera DOF; ``pcg`` (matrix-free CG on the normal
-equations). ``mode="jit"``, a whole solve captured without host syncs, is
-ROADMAP A.8.
+Two modes, as in the JAX package. ``mode="python"`` (the default) runs each
+iteration eagerly on the problem's device and reads its scalars (costs,
+norms, predicted reduction) back once. ``mode="jit"`` keeps the whole solve
+on the device: accept/reject, the damping, rho and the status are device
+tensors, and the host reads back only the status before each iteration
+and one flag per branch the step takes (the solvers' ladders, refinement
+gate, PCG chunks; ``_optimize_jit``). On a CUDA problem each iteration is a
+program of CUDA graphs captured once and replayed (``graphs.py``); on the
+CPU the same step runs eagerly.
 
-Damping, nu and the step quality are numpy scalars of the problem's dtype,
-updated in that dtype as the JAX package updates them in its compile dtype.
+The linear solvers: ``dense_cholesky`` (the default: dense H by
+scatter-add, Cholesky with the retry ladder), ``dense_qr`` (QR of the
+damped stacked Jacobian); ``banded_cholesky``, alias ``sparse_cholesky``
+(pose graphs: band assembly and block cyclic reduction; above a block
+bandwidth of 1536 the general tier, when its plan is healthy), and
+``banded_qr``, alias ``sparse_qr`` (the same band, a QR sweep; ``dense_qr``
+above a block bandwidth of 1536); ``sparse_general`` (independent-set
+block elimination, any sparsity); ``schur_implicit``, alias
+``iterative_schur``, and ``schur_explicit``, aliases ``sparse_schur`` and
+``sparse_schur_complement`` (bundle adjustment), with ``schur`` /
+``schur_auto`` choosing the explicit variant up to 4096 reduced camera
+DOF; ``pcg`` (matrix-free CG on the normal equations). ``banded_qr``,
+``pcg`` and the general tier run in python mode only (ROADMAP A.8b).
+
+In python mode damping, nu and the step quality are numpy scalars of the
+problem's dtype, updated in that dtype as the JAX package updates them in
+its compile dtype; in jit mode they are 0-d tensors of that dtype.
 """
 
 from __future__ import annotations
@@ -39,13 +48,16 @@ from torch.profiler import record_function
 
 from ..core.problem import CompiledProblem
 from ..linalg import dense
+from . import graphs
 from .common import (
     ConvergenceConfig,
     IterationStats,
     SolverResult,
     Status,
     check_convergence,
+    check_convergence_t,
     compute_step_quality,
+    compute_step_quality_t,
 )
 
 # schur / schur_auto: the dense reduced camera matrix up to this many
@@ -73,7 +85,7 @@ class LevenbergMarquardtConfig:
     min_cost_threshold: Optional[float] = None
     use_jacobi_scaling: bool = False
     compute_covariances: bool = False
-    mode: str = "python"  # "python"; "jit" is ROADMAP A.8
+    mode: str = "python"  # "python" | "jit"
     collect_stats: bool = False
     verbose: bool = False
     # Schur options
@@ -131,17 +143,47 @@ def damping_update(damping, nu, rho, accepted: bool, cfg: LevenbergMarquardtConf
     return np.minimum(damping * t(nu), t(cfg.damping_max)), t(nu) * t(2.0)
 
 
+def damping_update_t(damping, nu, rho, accepted, cfg: LevenbergMarquardtConfig):
+    """``damping_update`` on 0-d tensors of the problem's dtype, both
+    branches selected by the bool tensor ``accepted``: bit-equal to the
+    numpy form and to the JAX package's jitted step."""
+    coff = 2.0 * rho - 1.0
+    grown = torch.clamp(damping * torch.clamp_min(1.0 - coff * coff * coff, 1.0 / 3.0),
+                        cfg.damping_min, cfg.damping_max)
+    new_damping = torch.where(accepted, grown, torch.clamp_max(damping * nu, cfg.damping_max))
+    new_nu = torch.where(accepted, torch.full_like(nu, 2.0), nu * 2.0)
+    return new_damping, new_nu
+
+
+def _first_iteration(iteration, first, later):
+    """``first()`` on iteration 0, else ``later``: a host branch on a Python
+    iteration (python mode), a ``torch.where`` on a device counter (jit)."""
+    if isinstance(iteration, torch.Tensor):
+        return torch.where(iteration == 0, first(), later)
+    return first() if iteration == 0 else later
+
+
+# jit mode's state after the pool tensors, each a 0-d tensor but
+# jacobi_scale [D]: the reference's loop state, with the initial cost
+JIT_STATE = ("damping", "nu", "cost", "iteration", "status", "jacobi_scale",
+             "gradient_norm", "step_norm", "rho", "n_success", "n_fail", "initial_cost")
+
+
 class LevenbergMarquardt:
     def __init__(self, config: Optional[LevenbergMarquardtConfig] = None):
         self.config = config or LevenbergMarquardtConfig()
         # step functions per compiled problem: the Schur structure analysis
         # runs once per problem object, and dies with it
         self._step_cache = weakref.WeakKeyDictionary()
+        # jit mode: the captured graphs and their static state per problem
+        self._jit_cache = weakref.WeakKeyDictionary()
 
     # ------------------------------------------------------------------
-    def _make_solve_fn(self, cp: CompiledProblem):
+    def _make_solve_fn(self, cp: CompiledProblem, sync_free: bool = False):
         """linearize_and_solve(values, damping, iteration, jacobi_scale)
-        -> (dx, g, cost, scale, predicted)."""
+        -> (dx, g, cost, scale, predicted). ``sync_free`` (jit mode):
+        damping and iteration are device tensors, PCG reads its flag per
+        chunk, and the solvers jit mode does not run yet raise."""
         cfg = self.config
         aliases = {
             "sparse_cholesky": "banded_cholesky",
@@ -150,6 +192,12 @@ class LevenbergMarquardt:
             "iterative_schur": "schur_implicit",
         }
         solver_type = aliases.get(cfg.linear_solver_type, cfg.linear_solver_type)
+
+        def python_only(what):
+            if sync_free:
+                raise NotImplementedError(
+                    f"{what} in mode='jit' is ROADMAP A.8b; it runs in mode='python'")
+
         if solver_type == "banded_qr":
             from ..linalg import banded
 
@@ -157,6 +205,8 @@ class LevenbergMarquardt:
             # stacked-J QR, which is at least as rank-robust
             if banded.block_bandwidth(cp) > banded.MAX_BANDWIDTH:
                 solver_type = "dense_qr"
+            else:
+                python_only(f"linear solver {cfg.linear_solver_type!r}")
         if solver_type == "sparse_general" or (
                 solver_type == "banded_cholesky" and cfg.banded_panel is None):
             from ..linalg import banded
@@ -168,6 +218,7 @@ class LevenbergMarquardt:
             if solver_type == "sparse_general" or (
                     banded.block_bandwidth(cp) > banded.MAX_BANDWIDTH
                     and GeneralSparseCholesky.suitable(cp)):
+                python_only(f"the general-sparsity tier ({cfg.linear_solver_type!r})")
                 gs = GeneralSparseCholesky(cp)
                 if gs.healthy() or solver_type == "sparse_general":
                     return self._make_general_solve_fn(gs)
@@ -178,6 +229,7 @@ class LevenbergMarquardt:
         if solver_type == "dense_qr":
             return self._make_dense_qr_solve_fn(cp)
         if solver_type == "pcg":
+            python_only("linear solver 'pcg'")
             return self._make_pcg_solve_fn(cp)
         if solver_type not in ("schur_explicit", "schur_implicit", "sparse_schur",
                                "schur", "schur_auto"):
@@ -196,6 +248,7 @@ class LevenbergMarquardt:
                 # pcg_forcing=False means exact solves, so it disables both
                 # inexact-inner-solve policies
                 pcg_q_tolerance=cfg.pcg_q_tolerance if cfg.pcg_forcing else None,
+                sync_free=sync_free,
             )
 
         if solver_type in ("schur", "schur_auto"):
@@ -213,7 +266,8 @@ class LevenbergMarquardt:
             if warm:
                 # the state slot holds the previous global step; the loop
                 # initializes it to ones, so iteration 0 zeroes it
-                prev = torch.zeros_like(jacobi_scale) if iteration == 0 else jacobi_scale
+                prev = _first_iteration(iteration, lambda: torch.zeros_like(jacobi_scale),
+                                        jacobi_scale)
                 dx, g, cost, predicted = ctx.solve(values, damping, iteration=iteration,
                                                    dx_prev=prev)
                 return dx, g, cost, dx, predicted
@@ -270,11 +324,11 @@ class LevenbergMarquardt:
             Dg, Cg, gv, cost = asm.assemble(values)
             Dg = asm.pad_diag_ones(Dg)
             if cfg.use_jacobi_scaling:
-                if iteration == 0:
-                    diag = torch.diagonal(Dg, dim1=1, dim2=2).reshape(-1)[:D]
-                    scale = 1.0 / (1.0 + torch.sqrt(diag))
-                else:
-                    scale = jacobi_scale
+                scale = _first_iteration(
+                    iteration,
+                    lambda: 1.0 / (1.0 + torch.sqrt(
+                        torch.diagonal(Dg, dim1=1, dim2=2).reshape(-1)[:D])),
+                    jacobi_scale)
                 sb = torch.nn.functional.pad(scale, (0, Dp - D), value=1.0).reshape(n, m)
                 sb_prev = torch.cat([sb[:1] * 0.0, sb[:-1]])
                 Dg = Dg * sb[:, :, None] * sb[:, None, :]
@@ -299,8 +353,8 @@ class LevenbergMarquardt:
             with record_function("dense.assemble"):
                 H, g, cost = cp.assemble_normal(values)
             if cfg.use_jacobi_scaling:
-                scale = (1.0 / (1.0 + torch.sqrt(torch.diagonal(H))) if iteration == 0
-                         else jacobi_scale)
+                scale = _first_iteration(
+                    iteration, lambda: 1.0 / (1.0 + torch.sqrt(torch.diagonal(H))), jacobi_scale)
                 H = H * scale[None, :] * scale[:, None]
                 g = g * scale
             else:
@@ -322,8 +376,9 @@ class LevenbergMarquardt:
                 r, J = cp.assemble_dense_jacobian(values)
             cost = 0.5 * torch.dot(r, r)
             if cfg.use_jacobi_scaling:
-                scale = (1.0 / (1.0 + torch.linalg.vector_norm(J, dim=0)) if iteration == 0
-                         else jacobi_scale)
+                scale = _first_iteration(
+                    iteration, lambda: 1.0 / (1.0 + torch.linalg.vector_norm(J, dim=0)),
+                    jacobi_scale)
                 J = J * scale[None, :]
             else:
                 scale = jacobi_scale
@@ -391,10 +446,8 @@ class LevenbergMarquardt:
         there is none); compile it yourself to pick the dtype and the
         device."""
         cfg = self.config
-        if cfg.mode != "python":
-            raise NotImplementedError(
-                f"mode {cfg.mode!r} is not ported yet (ROADMAP A.8: a solve "
-                "captured as a CUDA graph); the port has mode='python'")
+        if cfg.mode not in ("python", "jit"):
+            raise ValueError(f"unknown mode {cfg.mode!r}; 'python' or 'jit'")
         cp = problem if isinstance(problem, CompiledProblem) else problem.compile(initial_values)
         if not cp.groups or cp.total_dof == 0:
             values = cp.initial_values()
@@ -402,6 +455,8 @@ class LevenbergMarquardt:
             return SolverResult(status=Status.CONVERGED, iterations=0,
                                 initial_cost=cost, final_cost=cost,
                                 elapsed_seconds=0.0, variables=cp.values_dict(values))
+        if cfg.mode == "jit":
+            return self._optimize_jit(cp)
         return self._optimize_python(cp)
 
     def _init_damping_state(self, cp: CompiledProblem, values):
@@ -491,3 +546,172 @@ class LevenbergMarquardt:
             iteration_stats=stats,
             covariances=covariances,
         )
+
+    # ------------------------------------------------------------------
+    def _make_device_init(self, cp: CompiledProblem):
+        """The reference's ``init_state_fn``: the initial values, their
+        cost, the initial damping and the empty statistics as jit state."""
+        cfg = self.config
+        dt, dev = cp.dtype, cp.device
+
+        def full(value, dtype=dt):
+            return torch.full((), value, dtype=dtype, device=dev)
+
+        def init(*state):
+            # every slot a tensor of its own: the captured programs write
+            # them in place
+            values = tuple(v.clone() for v in cp.initial_values())
+            cost0 = cp.cost(values)
+            if cfg.damping == "auto":
+                damping = torch.clamp(cp.normal_diag_max(values) * cfg.damping_tau,
+                                      cfg.damping_min, cfg.damping_max)
+            else:
+                damping = full(cfg.damping if not isinstance(cfg.damping, str) else 1e-3)
+            nan = float("nan")
+            return graphs.assign(state, (
+                *values, damping, full(2.0), cost0.clone(), full(0, torch.int64),
+                full(int(Status.RUNNING), torch.int32),
+                torch.ones(cp.total_dof, dtype=dt, device=dev), full(nan), full(nan), full(nan),
+                full(0, torch.int64), full(0, torch.int64), cost0))
+
+        return init
+
+    def _make_device_step(self, cp: CompiledProblem):
+        """The reference's ``step`` on jit state (``JIT_STATE`` after the
+        pool tensors): no value is read back; accept/reject, the damping
+        update and the status are ``torch.where`` on 0-d tensors."""
+        cfg = self.config
+        ccfg = cfg.convergence()
+        solve_fn = self._make_solve_fn(cp, sync_free=True)
+        n_pools = len(cp.pools)
+
+        def step(*state):
+            values = state[:n_pools]
+            damping, nu, _, iteration, _, jacobi_scale, _, _, _, n_succ, n_fail, cost0 = \
+                state[n_pools:]
+            dx, g, current_cost, scale, predicted = solve_fn(values, damping, iteration,
+                                                             jacobi_scale)
+            if predicted is None:
+                # exact solve: 0.5 step^T (lambda step - g)
+                predicted = 0.5 * torch.sum(dx * (damping * dx - g))
+            with record_function("lm.trial_cost"):
+                new_values = cp.apply_step(values, dx)
+                new_cost = cp.cost(new_values)
+            gradient_norm = torch.linalg.vector_norm(g)
+            step_norm = torch.linalg.vector_norm(dx)
+            rho = compute_step_quality_t(current_cost, new_cost, predicted)
+            accepted = rho > 0.0
+            damping, nu = damping_update_t(damping, nu, rho, accepted, cfg)
+            values = tuple(torch.where(accepted, new, old) for new, old in zip(new_values, values))
+            cost = torch.where(accepted, new_cost, current_cost)
+            status = check_convergence_t(
+                iteration=iteration,
+                current_cost=current_cost,
+                new_cost=cost,
+                parameter_norm=cp.parameter_norm(values),
+                parameter_update_norm=step_norm,
+                gradient_norm=gradient_norm,
+                step_accepted=accepted,
+                cfg=ccfg,
+                trust_region_radius=cfg.trust_region_radius,
+            )
+            return graphs.assign(state, (
+                *values, damping, nu, cost, iteration + 1, status, scale, gradient_norm,
+                step_norm, rho, n_succ + accepted, n_fail + ~accepted, cost0))
+
+        return step
+
+    def _optimize_jit(self, cp: CompiledProblem) -> SolverResult:
+        """The whole solve on the device (the reference's ``_optimize_jit``):
+        the initial state and each iteration are replayed programs (CUDA
+        graphs on a card, the same step eagerly on the CPU), captured once
+        per problem. The host reads the status before each iteration and
+        checks ``timeout`` every ``ceil(max_iterations / 8)`` iterations, so
+        that TIMEOUT comes after the reference's iteration count."""
+        cfg = self.config
+        start = time.perf_counter()
+        run = self._jit_cache.get(cp)
+        if run is None:
+            run = self._jit_cache[cp] = _JitRun(
+                cp, self._make_device_init(cp), self._make_device_step(cp))
+        run.init()
+        chunk = max(1, -(-cfg.max_iterations // 8))
+        done = 0
+        while True:
+            status = Status(run.status())
+            if status != Status.RUNNING:
+                break
+            if (cfg.timeout is not None and done and done % chunk == 0
+                    and time.perf_counter() - start >= cfg.timeout):
+                status = Status.TIMEOUT
+                break
+            run.step()
+            done += 1
+        return self._finish_jit(cp, start, run, status)
+
+    def _finish_jit(self, cp: CompiledProblem, start, run, status) -> SolverResult:
+        """``SolverResult`` as the reference's ``_finish_jit`` builds it: one
+        read of the scalars, no per-iteration statistics."""
+        values = run.state[:len(cp.pools)]
+        st = dict(zip(JIT_STATE, run.state[len(cp.pools):]))
+        graphs.host_reads += 1
+        cost0, cost, iteration, gnorm, snorm, n_succ, n_fail = torch.stack([
+            st[k].to(torch.float64) for k in ("initial_cost", "cost", "iteration",
+                                              "gradient_norm", "step_norm", "n_success",
+                                              "n_fail")]).tolist()
+        covariances = None
+        if self.config.compute_covariances:
+            from ..core.covariance import compute_covariances
+
+            covariances = compute_covariances(cp, values)
+        iteration = int(iteration)
+        return SolverResult(
+            status=status,
+            iterations=iteration,
+            initial_cost=cost0,
+            final_cost=cost,
+            elapsed_seconds=time.perf_counter() - start,
+            variables=cp.values_dict(values),
+            final_gradient_norm=gnorm,
+            final_step_norm=snorm,
+            cost_evaluations=iteration + 1,
+            jacobian_evaluations=iteration,
+            successful_steps=int(n_succ),
+            unsuccessful_steps=int(n_fail),
+            covariances=covariances,
+        )
+
+
+class _JitRun:
+    """jit mode's programs and static state for one problem: on a card the
+    initial state and the step captured (``graphs.Captured``, one memory
+    pool), on the CPU the same functions called eagerly."""
+
+    def __init__(self, cp: CompiledProblem, init, step):
+        t0 = time.perf_counter()
+        self._init, self._step = init, step
+        self._status = len(cp.pools) + JIT_STATE.index("status")
+        self.state = init()
+        self._graphs = None
+        if cp.device.type == "cuda":
+            pool = torch.cuda.graph_pool_handle()
+            self._graphs = (graphs.Captured(init, self.state, pool),
+                            graphs.Captured(step, self.state, pool))
+            torch.cuda.synchronize(cp.device)
+        # host seconds to build the state, warm up and capture
+        self.capture_seconds = time.perf_counter() - t0
+
+    def init(self):
+        if self._graphs:
+            self._graphs[0].replay()
+        else:
+            self.state = self._init(*self.state)
+
+    def step(self):
+        if self._graphs:
+            self._graphs[1].replay()
+        else:
+            self.state = self._step(*self.state)
+
+    def status(self) -> int:
+        return graphs.read_status(self.state[self._status])

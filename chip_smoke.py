@@ -84,11 +84,33 @@ each printing one JSON line; any failure raises and exits non-zero:
     solve must take the general tier with a healthy plan whose core has the
     JAX package's 3,377 blocks, and converge with more than 50% reduction.
     Prints the plan, the solve seconds and the peak memory of the dense
-    core (20,262 columns).
+    core (20,262 columns);
+19. jit parity: the medium SE3 fixture in ``mode="jit"`` on the card
+    against the CPU (same iterations and status, rtol 1e-8, certified);
+20. jit pose graphs: the sphere and the M3500-shaped graph through LM
+    ``sparse_cholesky`` (bench.py's settings) and Gauss-Newton on the
+    sphere, f64 then f32; 21. jit BA: the trafalgar-scale synthetic through
+    ``schur`` and ``schur_implicit``, 10 iterations, f64 then f32. Each
+    beside three python-mode solves of the same compiled problem (the last
+    timed): f64 must give python mode's iterations, status and final cost
+    (rtol 1e-10; 1e-8 for GN on the gauge-free sphere and 1e-7 for the
+    explicit BA solve, where python mode's own solves spread by up to 4e-10
+    and 1e-8: ``index_add_`` sums in atomic order, and the undamped GN
+    solve and the Cholesky of S magnify it; or 10x python mode's spread
+    over its three solves where that is larger); f32 the phase's quality
+    gate. Each prints the first-solve (state, warm-up, capture),
+    capture and timed-solve seconds, graphs, replays and host reads per LM
+    iteration, the device-idle share (profiled, and the profiled solve's
+    device time against the timed solve's wall time), device events per LM
+    iteration, peak memory and the graph memory kept reserved; in the BA
+    phases the landmark kernel runs at least once per LM iteration inside
+    the replayed graphs, counted by name in the profile.
 
 The pose-graph paths launch no kernel of the port's own (the TPU reference
 ran them in XLA, outside Pallas): the landmark-block kernel, the one hand
-kernel, runs on the BA paths only. Then the kernel summary line, and last
+kernel, runs on the BA paths only. Then the kernel summary line (the
+python-mode and the jit launches on the main paths, each per LM
+iteration), and last
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without one.
 """
@@ -361,6 +383,10 @@ def phase_pose_graph_parity():
               rel_diff_cpu=abs(rh.final_cost - certified) / certified))
 
 
+# the landmark kernel's symbol, as the profiler names its device events
+LANDMARK_KERNEL = "invert_landmark_blocks_kernel"
+
+
 def profile_solve(solve):
     """One solve under torch.profiler: wall seconds, device busy seconds
     (the sum of device events: kernels, copies, sets; one stream, so they do
@@ -395,6 +421,7 @@ def profile_solve(solve):
                 device_idle_share=1.0 - busy_us / 1e6 / wall,
                 iterations=iterations, device_events=len(device),
                 device_events_per_lm_iteration=len(device) / iterations,
+                landmark_kernel_events=sum(LANDMARK_KERNEL in e.name for e in device),
                 top_device_ops_ms=[[name[:90], us / 1e3] for name, us in top], spans=spans)
 
 
@@ -1057,6 +1084,227 @@ def phase_general_auto():
         raise AssertionError(f"grid3d 20^3: {res.summary()} misses the 50% gate")
 
 
+# -- mode="jit": the solve as replayed CUDA graphs ---------------------------------
+
+
+def phase_jit_parity():
+    """The medium SE3 fixture in jit mode on the card against the CPU: the
+    same iterations and status, rtol 1e-8, the certified cost."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.optim import graphs
+
+    fname, certified, iterations = MEDIUM_SE3
+    problem = apx.load_g2o(os.path.join(REPO, fname)).to_problem()
+    results = {}
+    for device in ("cuda", "cpu"):
+        cfg = apx.LevenbergMarquardtConfig(
+            linear_solver_type="sparse_cholesky", max_iterations=100, cost_tolerance=1e-10,
+            parameter_tolerance=1e-14, gradient_tolerance=1e-14, mode="jit")
+        graphs.reset_counters()
+        results[device] = apx.LevenbergMarquardt(cfg).optimize(
+            problem.compile(dtype=torch.float64, device=device))
+    rc, rh = results["cuda"], results["cpu"]
+    if (rc.iterations, rc.status) != (rh.iterations, rh.status) or rc.iterations != iterations:
+        raise AssertionError(f"cuda {rc.summary()} vs cpu {rh.summary()}")
+    np.testing.assert_allclose(rc.final_cost, rh.final_cost, rtol=1e-8)
+    np.testing.assert_allclose(rc.final_cost, certified, rtol=1e-8)
+    emit(dict(phase="jit_parity", file=fname, iterations=rc.iterations,
+              status=rc.status.name, cost_cuda=rc.final_cost, cost_cpu=rh.final_cost,
+              rel_diff=abs(rc.final_cost - rh.final_cost) / rh.final_cost))
+
+
+def graph_counters():
+    from apex_tpu_torch.kernels import landmark_blocks as lb
+    from apex_tpu_torch.optim import graphs
+
+    return dict(captures=graphs.captures, graphs=graphs.graphs, replays=graphs.replays,
+                uncaptured_calls=graphs.uncaptured_calls,
+                host_reads=graphs.host_reads, status_reads=graphs.status_reads,
+                replayed_kernel_launches=graphs.kernel_launches,
+                eager_kernel_launches=lb.launches)
+
+
+def counted_solve(solver, cp):
+    """One synchronized solve: (result, seconds, counter increments)."""
+    import torch
+
+    before = graph_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver.optimize(cp)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return res, seconds, {k: v - before[k] for k, v in graph_counters().items()}
+
+
+def jit_full(phase, label, problem, make, dtype, gate, rtol=1e-10):
+    """One dtype of a jit phase: three python-mode solves (the last timed,
+    the reference; the spread of their final costs is python mode's own
+    run-to-run rounding, from ``index_add_``'s atomic order), then the jit
+    solves: the first (state, warm-up and capture), one under the profiler
+    and the timed one. f64 must give python mode's iterations and status
+    and its final cost within ``rtol``, or within 10x python mode's own
+    spread where that is larger; ``gate(res)`` raises on a result below the
+    phase's quality gate. Returns (jit iterations of the three solves,
+    landmark kernel launches in them, by the replay count, the profile)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    name = str(dtype).replace("torch.", "")
+    cp = problem.compile(dtype=dtype, device="cuda")
+    python = make("python")
+    costs = [counted_solve(python, cp)[0].final_cost for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    ref, python_s, _ = counted_solve(python, cp)
+    python_peak = torch.cuda.max_memory_allocated()
+    costs.append(ref.final_cost)
+    spread = (max(costs) - min(costs)) / abs(ref.final_cost)
+    jit = make("jit")
+    # earlier phases' graphs die with their solvers: release their pools
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    first, first_s, first_n = counted_solve(jit, cp)
+    first_peak = torch.cuda.max_memory_allocated()
+    # what the captured programs keep reserved: their memory pool, and the
+    # static state
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_memory = torch.cuda.memory_reserved() - reserved
+    before = graph_counters()
+    profiled = profile_solve(lambda: jit.optimize(cp))
+    profiled_n = {k: v - before[k] for k, v in graph_counters().items()}
+    torch.cuda.reset_peak_memory_stats()
+    res, seconds, n = counted_solve(jit, cp)
+    peak = torch.cuda.max_memory_allocated()
+    rtol = max(rtol, 10.0 * spread)
+    emit(dict(phase=phase, graph=label, dtype=name, D=cp.total_dof, status=res.status.name,
+              iterations=res.iterations, initial_cost=res.initial_cost,
+              final_cost=res.final_cost, python_iterations=ref.iterations,
+              python_final_cost=ref.final_cost,
+              rel_diff_to_python=abs(res.final_cost - ref.final_cost) / ref.final_cost,
+              python_run_to_run_spread=spread, parity_rtol=rtol,
+              first_solve_seconds=first_s,
+              capture_seconds=jit._jit_cache[cp].capture_seconds,
+              solve_seconds=seconds, seconds_per_lm_iteration=seconds / res.iterations,
+              python_solve_seconds=python_s, speedup_over_python=python_s / seconds,
+              graphs=first_n["graphs"], replays=n["replays"],
+              replays_per_lm_iteration=n["replays"] / res.iterations,
+              host_reads=n["host_reads"],
+              host_reads_per_lm_iteration=n["host_reads"] / res.iterations,
+              uncaptured_calls=n["uncaptured_calls"],
+              device_idle_share=profiled["device_idle_share"],
+              # the profiled solve's device time per LM iteration against the
+              # timed solve's wall time per LM iteration: the idle share
+              # without the profiler's overhead (f32 runs may differ in
+              # iterations)
+              device_idle_share_timed=1.0 - (
+                  profiled["device_busy_seconds"] / profiled["iterations"]
+                  / (seconds / res.iterations)),
+              device_events_per_lm_iteration=profiled["device_events_per_lm_iteration"],
+              max_memory_allocated=peak, max_memory_allocated_first_solve=first_peak,
+              graph_memory_reserved=graph_memory,
+              python_max_memory_allocated=python_peak,
+              first_solve_counters=first_n, profiled_counters=profiled_n, profile=profiled))
+    if not np.isfinite(res.final_cost):
+        raise AssertionError(f"{phase} {label} {name}: final cost not finite")
+    if dtype == torch.float64:
+        if (res.iterations, res.status) != (ref.iterations, ref.status):
+            raise AssertionError(f"{label} jit {res.summary()} vs python {ref.summary()}")
+        np.testing.assert_allclose(res.final_cost, ref.final_cost, rtol=rtol,
+                                   err_msg=f"{label} jit against python mode")
+    gate(res)
+    if first_n["captures"] != 2 or n["captures"] or profiled_n["captures"]:
+        raise AssertionError(f"{label}: captures {first_n}, {profiled_n}, {n}")
+    iterations = first.iterations + profiled["iterations"] + res.iterations
+    launches = sum(c["replayed_kernel_launches"] + c["eager_kernel_launches"]
+                   for c in (first_n, profiled_n, n))
+    return iterations, launches, profiled
+
+
+def phase_jit_pose_graphs(sphere_problem, m3500_problem):
+    """jit mode on the sphere and the M3500-shaped graph through
+    sparse_cholesky (bench.py's settings), and GN on the sphere, f64 then
+    f32."""
+    import torch
+
+    import apex_tpu_torch as apx
+
+    bench = dict(linear_solver_type="sparse_cholesky", max_iterations=100, cost_tolerance=1e-4)
+
+    def lm(mode):
+        return apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+            damping="auto", mode=mode, **bench))
+
+    def gn(mode):
+        return apx.GaussNewton(apx.GaussNewtonConfig(mode=mode, **bench))
+
+    def reduction(share):
+        def gate(res):
+            if not (res.converged and 1.0 - res.final_cost / res.initial_cost > share):
+                raise AssertionError(f"{res.summary()} misses the {share:.0%} gate")
+        return gate
+
+    # Undamped GN on the gauge-free sphere leans on the CR ladder's 1e-10
+    # shift, which magnifies index_add_'s atomic rounding: python mode
+    # itself spreads by up to ~4e-10 between solves on the H100.
+    for label, problem, make, gate, rtol in (
+            ("sphere2500", sphere_problem, lm, reduction(0.99), 1e-10),
+            ("m3500", m3500_problem, lm, reduction(0.95), 1e-10),
+            ("sphere2500 gauss_newton", sphere_problem, gn, reduction(0.99), 1e-8)):
+        for dtype in (torch.float64, torch.float32):
+            jit_full("jit_pose_graph", label, problem, make, dtype, gate, rtol)
+
+
+def phase_jit_ba(ds, problem):
+    """jit mode on the trafalgar-scale synthetic through ``schur`` (the
+    explicit variant) and ``schur_implicit``, 10 LM iterations, f64 then
+    f32: RMSE below 0.55x, and the landmark kernel launched inside the
+    replayed graphs at least once per LM iteration, counted by name in the
+    profile. Returns (kernel launches, LM iterations) of the jit solves."""
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.ba import rmse
+
+    total = iterations = 0
+    for solver in ("schur", "schur_implicit"):
+        def make(mode, solver=solver):
+            cfg = apx.LevenbergMarquardtConfig.for_bundle_adjustment()
+            cfg.linear_solver_type = solver
+            cfg.max_iterations = 10
+            cfg.mode = mode
+            return apx.LevenbergMarquardt(cfg)
+
+        def gate(res):
+            r0 = rmse(res.initial_cost, ds.num_observations)
+            r1 = rmse(res.final_cost, ds.num_observations)
+            if not r1 < 0.55 * r0:
+                raise AssertionError(f"RMSE {r0} -> {r1} misses the 0.55x gate")
+
+        # the dense Cholesky of S magnifies index_add_'s atomic rounding:
+        # python mode's explicit solves spread by up to ~1e-8 on the H100
+        rtol = 1e-7 if solver == "schur" else 1e-10
+        for dtype in (torch.float64, torch.float32):
+            its, launches, profiled = jit_full("jit_ba", f"trafalgar257 {solver}", problem,
+                                               make, dtype, gate, rtol)
+            if profiled["landmark_kernel_events"] < profiled["iterations"]:
+                raise AssertionError(
+                    f"{solver} {dtype}: {profiled['landmark_kernel_events']} landmark kernel "
+                    f"events in the profile for {profiled['iterations']} LM iterations")
+            if launches < its:
+                raise AssertionError(f"{solver} {dtype}: {launches} launches, {its} iterations")
+            total += launches
+            iterations += its
+    return total, iterations
+
+
 def main():
     import torch
 
@@ -1103,6 +1351,16 @@ def main():
     phase_general_full()
     phase_general_auto()
 
+    from apex_tpu_torch.optim import graphs
+
+    phase_jit_parity()
+    phase_jit_pose_graphs(sphere_problem, m3500_problem)
+    # the jit path's kernel count, from 0: eager launches in its solves (the
+    # warm-up before each capture) and launches made by graph replays
+    lb.launches = 0
+    graphs.reset_counters()
+    launches_jit, iterations_jit = phase_jit_ba(ds, ba_problem)
+
     main_shape = measured[(65_132, torch.float64)]
     emit({"kernels": [{
         "name": "invert_landmark_blocks",
@@ -1111,6 +1369,8 @@ def main():
         "replaces": "apex_tpu/kernels/landmark_blocks.py:101",
         "launches": launches,
         "launches_per_lm_iteration": launches / iterations,
+        "launches_jit": launches_jit,
+        "launches_per_lm_iteration_jit": launches_jit / iterations_jit,
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["device_us"] / 1e3,
         "plain_ms": main_shape["plain_ms"],

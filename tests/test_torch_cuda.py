@@ -450,3 +450,101 @@ def test_sparse_cholesky_switches_on_the_card(card):
         linear_solver_type="sparse_cholesky", max_iterations=2))
     assert lm._make_solve_fn(cp).general_sparse.healthy()
     assert lm.optimize(cp).final_cost == 0.0
+
+
+# -- mode="jit": captured CUDA graphs --------------------------------------------
+
+JIT_CASES = {
+    "se3_sparse_cholesky": ("medium_se3_250.g2o", "lm", dict(linear_solver_type="sparse_cholesky")),
+    "se2_dense_cholesky": ("medium_se2_300.g2o", "lm", dict(linear_solver_type="dense_cholesky")),
+    "se2_dense_qr": ("medium_se2_300.g2o", "lm", dict(linear_solver_type="dense_qr")),
+    "se2_jacobi_scaling": ("medium_se2_300.g2o", "lm", dict(linear_solver_type="sparse_cholesky",
+                                                            use_jacobi_scaling=True)),
+    "ba_schur_explicit": ("ba", "lm", dict(linear_solver_type="schur_explicit",
+                                           max_iterations=30)),
+    "ba_schur_implicit": ("ba", "lm", dict(linear_solver_type="schur_implicit",
+                                           max_iterations=30)),
+    # the first pose fixed: undamped GN on a gauge-free graph leans on the
+    # ladder's 1e-10 shift, which magnifies index_add_'s atomic rounding
+    "se3_gauss_newton": ("medium_se3_250.g2o", "gn", dict(linear_solver_type="sparse_cholesky")),
+}
+
+
+def _jit_problem(name, fix_first=False):
+    if name == "ba":
+        return build_ba_problem(synthetic.synthetic_ba(n_cameras=8, n_points=150, seed=0))
+    return apx.load_g2o(FIXTURES / name).to_problem(fix_first=fix_first)
+
+
+def _jit_solver(kind, **kw):
+    if kind == "gn":
+        return apx.GaussNewton(apx.GaussNewtonConfig(**kw))
+    return apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(**kw))
+
+
+def _eager_jit(solver, cp):
+    """jit mode's step run eagerly on the card, without capture: (status,
+    iterations, final cost)."""
+    from apex_tpu_torch.optim import graphs
+    from apex_tpu_torch.optim.lm import JIT_STATE
+
+    init, step = solver._make_device_init(cp), solver._make_device_step(cp)
+    state = init()
+    k = len(cp.pools)
+    while graphs.read_status(state[k + JIT_STATE.index("status")]) == apx.Status.RUNNING:
+        state = step(*state)
+    st = dict(zip(JIT_STATE, state[k:]))
+    return apx.Status(int(st["status"])), int(st["iteration"]), float(st["cost"])
+
+
+@pytest.mark.parametrize("case", list(JIT_CASES))
+def test_jit_captured_matches_eager_and_python(card, case):
+    """The captured solve against the same step run eagerly on the card and
+    against python mode on the card: the same iterations and status, rtol
+    1e-10 (the same arithmetic, summed by index_add_ in atomic order)."""
+    from apex_tpu_torch.optim import graphs
+
+    name, kind, kw = JIT_CASES[case]
+    cp = _jit_problem(name, fix_first=kind == "gn").compile(dtype=torch.float64, device=card)
+    graphs.reset_counters()
+    rj = _jit_solver(kind, mode="jit", **kw).optimize(cp)
+    assert graphs.captures == 2 and graphs.replays >= rj.iterations
+    status, iterations, cost = _eager_jit(_jit_solver(kind, mode="jit", **kw), cp)
+    assert (rj.status, rj.iterations) == (status, iterations)
+    np.testing.assert_allclose(rj.final_cost, cost, rtol=1e-10)
+    rp = _jit_solver(kind, mode="python", **kw).optimize(cp)
+    assert rj.converged and (rj.iterations, rj.status) == (rp.iterations, rp.status)
+    np.testing.assert_allclose(rj.final_cost, rp.final_cost, rtol=1e-10)
+
+
+@pytest.mark.parametrize("solver", ["schur_explicit", "schur_implicit"])
+def test_jit_replays_the_landmark_kernel(card, solver):
+    """The landmark kernel is captured into the BA graphs: each replay of
+    the step launches it (counted per replay), and no LM iteration calls
+    the wrapper; a second solve replays without a new capture and gives
+    the first one's result (rtol 1e-10: index_add_ sums in atomic order)."""
+    from apex_tpu_torch.optim import graphs
+
+    cp = _jit_problem("ba").compile(dtype=torch.float64, device=card)
+    lm = _jit_solver("lm", mode="jit", linear_solver_type=solver, max_iterations=30)
+    graphs.reset_counters()
+    lb.launches = lb.captured = 0
+    r1 = lm.optimize(cp)
+    assert lb.captured == 1  # recorded once, in the step's first graph
+    assert lb.launches == 1  # the warm-up's eager launch
+    assert graphs.kernel_launches == r1.iterations
+    r2 = lm.optimize(cp)
+    assert graphs.captures == 2 and lb.captured == 1 and lb.launches == 1
+    assert graphs.kernel_launches == r1.iterations + r2.iterations
+    assert (r1.iterations, r1.status) == (r2.iterations, r2.status)
+    np.testing.assert_allclose(r2.final_cost, r1.final_cost, rtol=1e-10)
+
+
+def test_jit_timeout_on_the_card(card):
+    cfg = apx.LevenbergMarquardtConfig(
+        mode="jit", max_iterations=16, cost_tolerance=0.0, parameter_tolerance=0.0,
+        gradient_tolerance=0.0, timeout=0.0)
+    cp = synthetic.synthetic_pose_graph_3d(n_poses=60, rings=4, seed=0).to_problem().compile(
+        dtype=torch.float64, device=card)
+    r = apx.LevenbergMarquardt(cfg).optimize(cp)
+    assert r.status == apx.Status.TIMEOUT and r.iterations == 2

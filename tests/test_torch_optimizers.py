@@ -307,9 +307,13 @@ def test_modes_and_exports():
     assert apx.GaussNewton is apx.optim.GaussNewton and apx.DogLeg is apx.optim.DogLeg
     assert {"GaussNewton", "GaussNewtonConfig", "DogLeg", "DogLegConfig"} <= set(apx.__all__)
     pt = _graph_problems("ring50")[1]
-    for kind in ("gn", "dl"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            _make(apx, kind, mode="jit").optimize(_compile(apx, pt))
+    # GN runs in jit mode, as python mode does; DogLeg's jit mode is A.8b
+    rp, rj = (_make(apx, "gn", mode=mode).optimize(_compile(apx, pt))
+              for mode in ("python", "jit"))
+    assert (rj.iterations, rj.status) == (rp.iterations, rp.status)
+    np.testing.assert_allclose(rj.final_cost, rp.final_cost, rtol=1e-12)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8b"):
+        _make(apx, "dl", mode="jit").optimize(_compile(apx, pt))
     # the configs carry the JAX package's fields and defaults
     for name in ("GaussNewtonConfig", "DogLegConfig"):
         jcfg, tcfg = getattr(jax_apx, name)(), getattr(apx, name)()
@@ -319,12 +323,13 @@ def test_modes_and_exports():
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_lm_damping_update_matches_jax_bitwise(dtype):
     """LM's damping and nu updates in the problem's dtype: over a grid of
-    (damping, nu, rho) the port's update equals the JAX package's step
+    (damping, nu, rho) the port's update, numpy form (python mode) and
+    tensor form (jit mode), equals the JAX package's step
     (apex_tpu/optim/lm.py, the lines from ``coff`` to ``new_nu``, jitted)
     bit for bit, in f32 and in f64."""
     import jax
 
-    from apex_tpu_torch.optim.lm import damping_update
+    from apex_tpu_torch.optim.lm import damping_update, damping_update_t
 
     cfg = apx.LevenbergMarquardtConfig()
 
@@ -350,3 +355,7 @@ def test_lm_damping_update_matches_jax_bitwise(dtype):
         assert type(d) is type(n) is dtype
         assert d.tobytes() == ref_d.tobytes() and n.tobytes() == ref_n.tobytes(), (
             damping, nu, rho, d, ref_d)
+    # jit mode's tensor form, over the whole grid at once
+    td, tn, trho = (torch.from_numpy(np.ascontiguousarray(c)) for c in grid.T)
+    d, n = damping_update_t(td, tn, trho, trho > 0.0, cfg)
+    assert d.numpy().tobytes() == jd.tobytes() and n.numpy().tobytes() == jn.tobytes()

@@ -156,16 +156,33 @@ def test_cli_module_runs_with_profile():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--synthetic", "sphere", "--optimizer", "gn", "--jit"], "ROADMAP A.8"),
-    (["--synthetic", "sphere", "--optimizer", "dl", "--jit"], "ROADMAP A.8"),
+    # --jit runs LM and GN (test_cli_jit_runs); these solvers do not yet
+    (["--synthetic", "sphere", "--optimizer", "gn", "--jit", "--linear-solver", "sparse_qr"],
+     "ROADMAP A.8b"),
+    (["--synthetic", "sphere", "--optimizer", "dl", "--jit"], "ROADMAP A.8b"),
     (["--dataset", "sphere2500"], "ROADMAP A.10"),
-    (["--synthetic", "sphere", "--jit"], "ROADMAP A.8"),
+    (["--synthetic", "sphere", "--jit", "--linear-solver", "pcg"], "ROADMAP A.8b"),
 ], ids=["gn", "dl", "dataset", "jit"])
 def test_cli_not_ported_paths_raise(argv, match):
     from apex_tpu_torch.cli.pose_graph import main
 
     with pytest.raises(NotImplementedError, match=match):
         main(argv + ["--poses", "100", "--platform", "cpu"])
+
+
+@pytest.mark.parametrize("optimizer", ["lm", "gn"])
+def test_cli_jit_runs(optimizer, capsys):
+    """--jit solves with LM and Gauss-Newton: the jit row equals the python
+    one (status, iterations, costs as printed)."""
+    from apex_tpu_torch.cli.pose_graph import main
+
+    argv = ["--file", str(FIXTURES / MEDIUM_SE3[0]), "--optimizer", optimizer,
+            "--platform", "cpu"]
+    rows = []
+    for extra in ([], ["--jit"]):
+        assert main(argv + extra) == 0
+        rows.append(capsys.readouterr().out.strip().splitlines()[-1].split()[:6])
+    assert rows[0] == rows[1] and rows[1][1] == "COST_TOLERANCE_REACHED"
 
 
 @pytest.mark.parametrize("argv,graph", [
