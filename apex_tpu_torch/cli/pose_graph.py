@@ -11,11 +11,10 @@ solvers ``sparse_cholesky``, ``sparse_qr``, ``sparse_general``,
 ``--platform`` picks the torch device: ``cuda`` (default) or ``cpu``. Asking
 for ``cuda`` on a machine without a card raises. ``--profile`` writes a
 ``torch.profiler`` trace of the last solve under the system's temporary
-directory. ``--jit`` runs LM and Gauss-Newton in ``mode="jit"`` (the whole
-solve on the device, replayed CUDA graphs on a card). Not ported yet, and
-raising ``NotImplementedError`` with their ROADMAP item: ``--dataset``
-(A.10), and ``--jit`` with DogLeg or with ``sparse_qr``, ``sparse_general``
-or ``pcg`` (A.8b).
+directory. ``--jit`` runs every optimizer with every linear solver in
+``mode="jit"`` (the whole solve on the device, replayed CUDA graphs on a
+card). Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
+item: ``--dataset`` (A.10).
 
 Usage:
     python -m apex_tpu_torch.cli.pose_graph --file graph.g2o
@@ -64,7 +63,7 @@ def build_parser():
     p.add_argument("--profile", action="store_true",
                    help=f"write a torch.profiler trace to {TRACE_PATH}")
     p.add_argument("--jit", action="store_true",
-                   help="whole solve on the device (LM and GN; replayed CUDA graphs on a card)")
+                   help="whole solve on the device (every optimizer; replayed CUDA graphs on a card)")
     p.add_argument("--verbose", action="store_true", help="per-iteration table")
     p.add_argument("--platform", default="cuda", choices=["cpu", "cuda"],
                    help="torch device (default cuda; no fallback to cpu)")

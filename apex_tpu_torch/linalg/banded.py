@@ -29,7 +29,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..optim.graphs import cond_update, ladder
+from ..optim.graphs import cond_update, ladder, while_update
 
 # Widest block bandwidth the banded path takes; above it LM's sparse_cholesky
 # switches to the general-sparsity tier (linalg/sparse_general.py).
@@ -72,6 +72,30 @@ def _cholesky(A):
     that is not positive definite comes back all NaN."""
     L, info = torch.linalg.cholesky_ex((A + A.mT) / 2)
     return torch.where((info != 0)[..., None, None], torch.nan, L)
+
+
+def damping_tensor(damping, dtype, device):
+    """The damping as a 0-d tensor of ``dtype``: a device tensor passes (jit
+    mode), a number or None (zero) becomes a fill, not a host-to-device
+    copy, which capture forbids."""
+    if isinstance(damping, torch.Tensor):
+        return damping.to(dtype)
+    return torch.full((), 0.0 if damping is None else damping, dtype=dtype, device=device)
+
+
+def shift_ladder(attempt, x, first_shift, stages=RETRY_STAGES):
+    """The reference's retry ``while_loop`` (``graphs.while_update``): while
+    ``x`` is not finite, ``x = attempt(reg)`` with ``reg = first_shift``,
+    then 100x per stage, ``stages`` times at most. -> (x, the stages run as
+    a 0-d int64 tensor)."""
+    def body(x, reg, stage):
+        reg = torch.where(stage == 0, first_shift, reg * 100.0)
+        return attempt(reg), reg, stage + 1
+
+    stage = torch.zeros((), dtype=torch.int64, device=x.device)
+    x, _, stage = while_update(lambda x, reg, stage: ~torch.isfinite(x).all(), body, stages,
+                               x, torch.zeros_like(first_shift), stage)
+    return x, stage
 
 
 def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
@@ -168,12 +192,7 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
         return xe.reshape(-1)[:n * m]
 
     def solve_blocks(Dg0, Cg, bp, damping=None):
-        if isinstance(damping, torch.Tensor):
-            damp = damping.to(dtype)
-        else:
-            # a fill, not a host-to-device copy: capture forbids the latter
-            damp = torch.full((), 0.0 if damping is None else damping, dtype=dtype,
-                              device=Dg0.device)
+        damp = damping_tensor(damping, dtype, Dg0.device)
         # mean diagonal magnitude for the retry ladder's first shift
         trace_d = torch.diagonal(Dg0, dim1=-2, dim2=-1).sum() / D + damp
         eye = torch.eye(m, dtype=dtype, device=Dg0.device)

@@ -19,7 +19,8 @@ nothing beyond), so the back substitution carries (x_{i+1}, x_{i+2}):
 Memory is O(n m^2), never the dense [D, D] H. QR solves (H + damping I)
 dx = b without squaring the system a second time, so a singular H is fine
 whenever damping > 0; at zero damping the escalating-shift ladder of the
-Cholesky tiers takes over.
+Cholesky tiers takes over (``banded.shift_ladder``: in a jit step one
+captured sweep, replayed per stage).
 
 The sweep is sequential by nature: a Python loop of n small ``qr`` and
 matrix products each way, so at small m the solve is bound by launches.
@@ -29,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from .banded import BASE_REG, RETRY_STAGES
+from .banded import BASE_REG, damping_tensor, shift_ladder
 
 
 def make_blocktri_qr_core(D: int, m: int, dtype):
@@ -79,20 +80,12 @@ def make_blocktri_qr_core(D: int, m: int, dtype):
         return torch.cat(xs)
 
     def solve_blocks(Dg0, Cg, bp, damping=None):
-        damp = 0.0 if damping is None else damping
+        damp = damping_tensor(damping, dtype, Dg0.device)
         eye = torch.eye(m, dtype=dtype, device=Dg0.device)
+        trace_d = torch.diagonal(Dg0, dim1=-2, dim2=-1).sum() / D + damp
         dx = qr_once(Dg0 + damp * eye, Cg, bp)
-        reg = None
-        for stage in range(RETRY_STAGES):
-            if bool(torch.isfinite(dx).all()):
-                break
-            if stage == 0:
-                trace_d = torch.diagonal(Dg0, dim1=-2, dim2=-1).sum() / D + damp
-                reg = BASE_REG * trace_d
-            else:
-                reg = reg * 100.0
-            dx = qr_once(Dg0 + (damp + reg) * eye, Cg, bp)
-        return dx
+        return shift_ladder(lambda reg: qr_once(Dg0 + (damp + reg) * eye, Cg, bp), dx,
+                            BASE_REG * trace_d)[0]
 
     solve_blocks.block = m
     solve_blocks.n_blocks = n

@@ -9,7 +9,8 @@ computes
 
 as gathers, batched small products and ``index_add_`` sums: O(K) memory
 instead of O(D^2). The preconditioner is the per-variable block diagonal of
-H + damping I, inverted through ``spd_clamped_inv``.
+H + damping I, inverted through ``spd_clamped_inv`` (outside the captured
+graphs in jit mode: ``graphs.uncaptured``).
 
 Select with ``linear_solver_type="pcg"`` on any optimizer config.
 """
@@ -19,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..core.problem import CompiledProblem
+from ..optim import graphs
 from .utils import bmv as _bmv
 from .utils import spd_clamped_inv
 
@@ -27,8 +29,9 @@ class IterativeNormalSolver:
     """The matrix-free normal-equation solve over a CompiledProblem."""
 
     def __init__(self, cp: CompiledProblem, max_iterations: int = 500,
-                 tolerance: float = 1e-10):
+                 tolerance: float = 1e-10, sync_free: bool = False):
         self.cp = cp
+        self.sync_free = sync_free
         self.max_iterations = max_iterations
         self.tolerance = tolerance
         # [K, dof_s] global tangent columns per group and slot
@@ -74,7 +77,8 @@ class IterativeNormalSolver:
         for grp, jacs, _ in blocks:
             for s, Js in enumerate(jacs):
                 acc[grp.pool_ids[s]].index_add_(0, grp.indices[s], Js.mT @ Js)
-        return [spd_clamped_inv(a) for a in acc]
+        # eigh reads its error flag back: not capturable
+        return [graphs.uncaptured(spd_clamped_inv, a) for a in acc]
 
     def _apply_prec(self, inv_blocks, x):
         y = torch.zeros_like(x)
@@ -87,20 +91,18 @@ class IterativeNormalSolver:
 
         The recurrence's inner products stay in the working dtype, as the
         JAX module's do (its Schur PCG accumulates them in f64; this solver
-        does not). The scalars of the recurrence stay on the device; each
-        iteration reads back one flag, the convergence test, as the Schur
-        PCG does."""
+        does not), and its scalars stay on the device. Python mode reads
+        one flag back per iteration, the convergence test. With
+        ``sync_free`` (jit mode) the loop is ``graphs.while_update`` over
+        chunks of ``graphs.PCG_CHUNK`` iterations, each masked by the
+        device test (a finished PCG stays finished), and reads one flag per
+        chunk: one captured chunk replayed on a card."""
         blocks, g, cost = self._linearize_all(values)
         inv_blocks = self._block_diag_inv(blocks, damping)
         b = -g
         tol2 = self.tolerance ** 2 * torch.dot(b, b)
 
-        x = torch.zeros_like(b)
-        r = b
-        z = p = self._apply_prec(inv_blocks, b)
-        rz = torch.dot(b, z)
-        it = 0
-        while it < self.max_iterations and bool(torch.dot(r, r) > tol2):
+        def iterate(x, r, p, rz, it):
             Sp = self._hx(blocks, p, damping)
             denom = torch.dot(p, Sp)
             alpha = rz / torch.where(denom == 0, torch.ones_like(denom), denom)
@@ -109,7 +111,25 @@ class IterativeNormalSolver:
             z = self._apply_prec(inv_blocks, r)
             rz_new = torch.dot(r, z)
             beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
-            p = p * beta + z
-            rz = rz_new
-            it += 1
+            return x, r, p * beta + z, rz_new, it + 1
+
+        def more(x, r, p, rz, it):
+            return (torch.dot(r, r) > tol2) & (it < self.max_iterations)
+
+        z = self._apply_prec(inv_blocks, b)
+        x, r, p, rz = torch.zeros_like(b), b, z, torch.dot(b, z)
+        if not self.sync_free:
+            state = (x, r, p, rz, 0)
+            while bool(more(*state)):
+                state = iterate(*state)
+            return state[0], g, cost
+
+        def chunk(*state):
+            for _ in range(graphs.PCG_CHUNK):
+                state = graphs.masked_update(more(*state), iterate, *state)
+            return state
+
+        it = torch.zeros((), dtype=torch.int64, device=b.device)
+        x = graphs.while_update(more, chunk, -(-self.max_iterations // graphs.PCG_CHUNK),
+                                x, r, p, rz, it)[0]
         return x, g, cost

@@ -20,8 +20,10 @@ Elimination stops when the remaining core is small or dense, and the core
 is one dense Cholesky. Back substitution replays the levels in reverse.
 Mixed-DOF variables are padded to the largest block DOF with
 identity-pinned diagonals; a Cholesky that fails gives NaN and the 5-stage
-retry ladder reads ``isfinite(x)``, one read-back per attempt. Spans named
-``general.*`` mark the layers for ``torch.profiler``.
+retry ladder reads ``isfinite(x)``, one read-back per attempt: a host read
+in python mode, a replayed loop of one captured elimination in a jit step
+(``graphs.while_update``). Spans named ``general.*`` mark the layers for
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .banded import BASE_REG, RETRY_STAGES, _cholesky
+from ..optim import graphs
+from .banded import BASE_REG, _cholesky, damping_tensor, shift_ladder
 
 # ---------------------------------------------------------------------------
 # Host-side symbolic analysis
@@ -200,7 +203,6 @@ class GeneralSparseCholesky:
 
     def __init__(self, cp, deg_cap=24, base_cap=512, min_picked=32):
         self.cp = cp
-        self.retry_stages = 0  # ladder stages run, over every solve
         nv, dof_arr, col_arr, edges = self._block_graph(cp)
         self.nv = nv
         self.dmax = int(dof_arr.max()) if nv else 1
@@ -212,6 +214,8 @@ class GeneralSparseCholesky:
         self._build_assembly_plan()
         self._build_core_plan()
         dev = cp.device
+        # ladder stages run, over every solve, counted on the device
+        self._retry_stages = torch.zeros((), dtype=torch.int64, device=dev)
 
         def on_dev(a):
             return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(dev)
@@ -361,7 +365,7 @@ class GeneralSparseCholesky:
         diag_add = shift * (1.0 - self._diag_pin) + self._diag_pin
         B.index_add_(0, self._diag_slots_all, diag_add[:, :, None] * eye)
         # keep the dump slot zero so padded gathers read zeros
-        B[self.sym.dump] = 0.0
+        B[self.sym.dump].zero_()
         # the last row takes the padded neighbours' updates
         b = torch.cat([bv, bv.new_zeros(1, d)])
 
@@ -409,27 +413,36 @@ class GeneralSparseCholesky:
         diagonal: at auto damping's late-phase mu (~1e-11 x the largest
         diagonal) the elimination's f32 rounding leaves the gauge-deficient
         separator core indefinite, and every LM iteration would otherwise
-        climb the ladder. The ladder starts at 1e-6 (f32) or BASE_REG (f64)
+        climb the ladder. The ladder (``banded.shift_ladder``, the
+        reference's ``while_loop``) starts at 1e-6 (f32) or BASE_REG (f64)
         x the mean diagonal and multiplies by 100 per stage, RETRY_STAGES
-        stages at most, one read-back of ``isfinite(x)`` per attempt."""
+        stages at most, one read of ``isfinite(x)`` per attempt; its stages
+        are counted on the device. ``damping`` may be a 0-d device tensor
+        (jit mode)."""
         dt = B.dtype
         f32 = dt == torch.float32
-        damp = torch.tensor(0.0 if damping is None else damping, dtype=dt, device=B.device)
+        damp = damping_tensor(damping, dt, B.device)
         bv = -gv
         diagB = B[self._diag_slots_all]
         trace_d = (torch.diagonal(diagB, dim1=-2, dim2=-1).sum(-1).sum()
                    / max(self.cp.total_dof, 1) + damp)
         floor = trace_d * 1e-7 if f32 else torch.zeros((), dtype=dt, device=B.device)
         x = self._solve_once(B, bv, damp + floor)
-        base0 = 1e-6 if f32 else BASE_REG
-        for stage in range(RETRY_STAGES):
-            if bool(torch.isfinite(x).all()):
-                break
-            reg = base0 * trace_d if stage == 0 else reg * 100.0
-            self.retry_stages += 1
+
+        def retry(reg):
             with record_function("general.retry"):
-                x = self._solve_once(B, bv, damp + reg)
+                return self._solve_once(B, bv, damp + reg)
+
+        x, stages = shift_ladder(retry, x, (1e-6 if f32 else BASE_REG) * trace_d)
+        if not graphs.warming_up():
+            self._retry_stages += stages
         return x.reshape(-1)[self._real]
+
+    @property
+    def retry_stages(self) -> int:
+        """Ladder stages run, over every solve (one read of the device
+        count)."""
+        return int(self._retry_stages)
 
     def solve(self, values, damping=None):
         """assemble + solve; -> (dx [D], g [D], cost)."""

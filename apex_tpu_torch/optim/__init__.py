@@ -1,5 +1,5 @@
-"""Optimizers of the port, each in python loop mode: Levenberg-Marquardt,
-Gauss-Newton and DogLeg."""
+"""Optimizers of the port, each in python loop mode and in ``mode="jit"``:
+Levenberg-Marquardt, Gauss-Newton and DogLeg."""
 
 from .common import ConvergenceConfig, IterationStats, SolverResult, Status
 from .dogleg import DogLeg, DogLegConfig

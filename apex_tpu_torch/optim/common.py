@@ -133,8 +133,12 @@ def check_convergence_t(
               (cost_ok, Status.COST_TOLERANCE_REACHED)]
     if cfg.min_cost_threshold is not None:
         checks.append((new_cost < cfg.min_cost_threshold, Status.MIN_COST_THRESHOLD_REACHED))
-    if trust_region_radius is not None and trust_region_radius < cfg.min_trust_region_radius:
-        checks.append((torch.ones_like(inval), Status.TRUST_REGION_RADIUS_TOO_SMALL))
+    if trust_region_radius is not None:
+        # a device term: DogLeg's radius is a 0-d tensor, LM's a config float
+        if not isinstance(trust_region_radius, torch.Tensor):
+            trust_region_radius = torch.full_like(new_cost, trust_region_radius)
+        checks.append((trust_region_radius < cfg.min_trust_region_radius,
+                       Status.TRUST_REGION_RADIUS_TOO_SMALL))
     status = torch.full_like(iteration, int(Status.RUNNING), dtype=torch.int32)
     for hit, code in reversed(checks):
         status = torch.where(hit, torch.full_like(status, int(code)), status)

@@ -12,14 +12,21 @@
 - a rejected poor step leaves its linearization in a cache, reused at most
   5 times (the parameters have not moved, so it is still exact)
 
-The trust region, mu and the cache ride where LM's damping rides, as a
-dict. The decision to reuse is taken on the host; each step reads its
-scalars back once.
+In python mode the trust region, mu and the cache ride where LM's damping
+rides, as a dict; the decision to reuse is taken on the host, and each step
+reads its scalars back once. In ``mode="jit"`` (the reference's
+``state_pack``) delta and mu are 0-d tensors and the cache is fixed device
+buffers in the loop state (``DogLeg.JIT_STATE``, then the Hessian's
+representation: the dense H, or the band's Dg and Cg); the fresh/reuse
+``lax.cond`` is a ``graphs.cond_update`` on the device flag, whose body
+(assembly, the solve with mu, the Cauchy point) writes the cache in place,
+and the trust-region update and acceptance are ``torch.where``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Optional
 
 import torch
@@ -27,7 +34,15 @@ from torch.profiler import record_function
 
 from ..core.problem import CompiledProblem
 from ..linalg import dense
-from .common import ConvergenceConfig, check_convergence, compute_step_quality
+from . import graphs
+from .common import (
+    ConvergenceConfig,
+    Status,
+    check_convergence,
+    check_convergence_t,
+    compute_step_quality,
+    compute_step_quality_t,
+)
 from .lm import LevenbergMarquardt, LevenbergMarquardtConfig
 
 MAX_STEP_REUSE = 5
@@ -106,7 +121,23 @@ def _dogleg_step(g, dx_gn, cauchy, delta):
                        torch.where(c_norm >= delta, sd_step, dl_step))
 
 
+def _cauchy_point(g, rep, hmatvec):
+    """-alpha g with alpha = ||g||^2 / (g^T H g), 1 where g^T H g is tiny."""
+    gTg = torch.sum(g * g)
+    gHg = torch.sum(g * hmatvec(rep, g))
+    return -torch.where(torch.abs(gHg) > 1e-15, gTg / gHg, torch.ones_like(gHg)) * g
+
+
 class DogLeg(LevenbergMarquardt):
+    # jit mode's state after the pool tensors: the trust region and mu
+    # where LM's damping rides, the loop's scalars, the steps taken from
+    # the cache, and the cache; the Hessian's representation in the cache
+    # (H, or Dg and Cg) follows these names
+    JIT_STATE = ("delta", "mu", "cost", "iteration", "status", "gradient_norm", "step_norm",
+                 "rho", "n_success", "n_fail", "initial_cost", "reused_steps",
+                 "cache_valid", "cache_count", "cache_g", "cache_dx_gn", "cache_cauchy")
+    JIT_COUNTERS = ("reused_steps",)
+
     def __init__(self, config: Optional[DogLegConfig] = None):
         self.dl_config = config or DogLegConfig()
         cfg = self.dl_config
@@ -125,16 +156,21 @@ class DogLeg(LevenbergMarquardt):
         ))
         # steps taken from the cache, over this object's solves
         self.reused_steps = 0
-
-    def _optimize_jit(self, cp: CompiledProblem):
-        raise NotImplementedError(
-            "DogLeg's mode='jit' (its fresh/reuse branch on the device) is ROADMAP A.8b; "
-            "DogLeg runs in mode='python'")
+        # the Hessian functions per compiled problem (the band plan is host
+        # work), shared by both modes' steps and jit mode's initial state
+        self._hessians = weakref.WeakKeyDictionary()
 
     def _hessian_functions(self, cp: CompiledProblem):
-        """(assemble, hsolve, hmatvec) for the configured solver: the
-        Hessian as a dense [D, D] matrix, or as the block-tridiagonal
-        (Dg, Cg) of the banded assembler, ``Cg[i] = H[i, i-1]``."""
+        """(assemble, hsolve, hmatvec, empty_rep) for the configured solver,
+        built once per problem. The Hessian's representation ``rep`` is a
+        tuple: the dense [D, D] matrix, or the block-tridiagonal (Dg, Cg) of
+        the banded assembler, ``Cg[i] = H[i, i-1]``; ``empty_rep()`` is its
+        zeros, jit mode's empty cache."""
+        if cp not in self._hessians:
+            self._hessians[cp] = self._build_hessian_functions(cp)
+        return self._hessians[cp]
+
+    def _build_hessian_functions(self, cp: CompiledProblem):
         dl = self.dl_config
         solver_type = {"sparse_cholesky": "banded_cholesky",
                        "sparse_qr": "banded_qr"}.get(dl.linear_solver_type,
@@ -182,24 +218,32 @@ class DogLeg(LevenbergMarquardt):
                 hx[1:] += (Cg[1:] @ xb[:-1])[..., 0]
                 hx[:-1] += (Cg[1:].mT @ xb[1:])[..., 0]
                 return hx.reshape(-1)[:D]
+
+            def empty_rep():
+                return tuple(torch.zeros(n, m, m, dtype=cp.dtype, device=cp.device)
+                             for _ in range(2))
         else:
 
             def assemble(values):
                 H, g, cost = cp.assemble_normal(values)
-                return H, g, cost
+                return (H,), g, cost
 
-            def hsolve(H, g, mu):
-                return dense.solve_cholesky_with_retry(H, g, mu)
+            def hsolve(rep, g, mu):
+                return dense.solve_cholesky_with_retry(rep[0], g, mu)
 
-            def hmatvec(H, v):
-                return H @ v
+            def hmatvec(rep, v):
+                return rep[0] @ v
 
-        return assemble, hsolve, hmatvec
+            def empty_rep():
+                D = cp.total_dof
+                return (torch.zeros(D, D, dtype=cp.dtype, device=cp.device),)
+
+        return assemble, hsolve, hmatvec, empty_rep
 
     def _make_step_fn(self, cp: CompiledProblem):
         dl = self.dl_config
         ccfg = dl.convergence()
-        assemble, hsolve, hmatvec = self._hessian_functions(cp)
+        assemble, hsolve, hmatvec, _ = self._hessian_functions(cp)
 
         def step(values, pack, nu, iteration, jacobi_scale):
             delta, mu, cache = pack["delta"], pack["mu"], pack["cache"]
@@ -213,10 +257,7 @@ class DogLeg(LevenbergMarquardt):
                 with record_function("dogleg.solve"):
                     # mu enters the solve only: rep stays the undamped H
                     dx_gn = hsolve(rep, g, mu)
-                gTg = torch.sum(g * g)
-                gHg = torch.sum(g * hmatvec(rep, g))
-                alpha = torch.where(torch.abs(gHg) > 1e-15, gTg / gHg, torch.ones_like(gHg))
-                cauchy = -alpha * g
+                cauchy = _cauchy_point(g, rep, hmatvec)
                 reuse_count = 0
 
             dx = _dogleg_step(g, dx_gn, cauchy, delta)
@@ -273,3 +314,98 @@ class DogLeg(LevenbergMarquardt):
     def _init_damping_state(self, cp: CompiledProblem, values):
         dl = self.dl_config
         return dict(delta=float(dl.trust_region_radius), mu=float(dl.initial_mu), cache=None)
+
+    # ------------------------------------------------------------------
+    def _make_device_init(self, cp: CompiledProblem):
+        """The reference's initial state for DogLeg: the initial values and
+        cost, delta and mu, the empty statistics and an invalid cache."""
+        dl = self.dl_config
+        dt, dev, D = cp.dtype, cp.device, cp.total_dof
+        empty_rep = self._hessian_functions(cp)[3]
+
+        def full(value, dtype=dt):
+            return torch.full((), value, dtype=dtype, device=dev)
+
+        def init(*state):
+            values = tuple(v.clone() for v in cp.initial_values())
+            cost0 = cp.cost(values)
+            nan = float("nan")
+            return graphs.assign(state, (
+                *values, full(dl.trust_region_radius), full(dl.initial_mu), cost0.clone(),
+                full(0, torch.int64), full(int(Status.RUNNING), torch.int32), full(nan),
+                full(nan), full(nan), full(0, torch.int64), full(0, torch.int64), cost0,
+                full(0, torch.int64), full(False, torch.bool), full(0, torch.int64),
+                *(torch.zeros(D, dtype=dt, device=dev) for _ in range(3)), *empty_rep()))
+
+        return init
+
+    def _make_device_step(self, cp: CompiledProblem):
+        """The reference's DogLeg ``step`` on jit state: fresh or reuse by
+        ``graphs.cond_update`` on ``~can_reuse`` (the fresh body writes the
+        cache buffers and the cost in place; the solvers' ladders nest in
+        it), then the dog-leg step, rho, acceptance at rho > 1e-4, delta, mu
+        and the cache's validity as ``torch.where``."""
+        dl = self.dl_config
+        ccfg = dl.convergence()
+        assemble, hsolve, hmatvec, _ = self._hessian_functions(cp)
+        n_pools, n_named = len(cp.pools), len(self.JIT_STATE)
+
+        def step(*state):
+            values = state[:n_pools]
+            (delta, mu, cost, iteration, _, _, _, _, n_succ, n_fail, cost0, reused,
+             valid, count, g, dx_gn, cauchy) = state[n_pools:n_pools + n_named]
+            rep = state[n_pools + n_named:]
+            can_reuse = valid & (count < MAX_STEP_REUSE) & (iteration > 0)
+
+            def fresh(*_):
+                with record_function("dogleg.assemble"):
+                    rep, g, current_cost = assemble(values)
+                with record_function("dogleg.solve"):
+                    dx_gn = hsolve(rep, g, mu)
+                return (*rep, g, dx_gn, _cauchy_point(g, rep, hmatvec), current_cost,
+                        torch.zeros_like(count))
+
+            # reuse keeps the cache and the loop's cost: the rejected step
+            # left the parameters where the cache was linearized
+            *rep, g, dx_gn, cauchy, current_cost, count = graphs.cond_update(
+                ~can_reuse, fresh, *rep, g, dx_gn, cauchy, cost, count)
+            count = torch.where(can_reuse, count + 1, count)
+
+            dx = _dogleg_step(g, dx_gn, cauchy, delta)
+            predicted = -torch.sum(dx * g) - 0.5 * torch.sum(dx * hmatvec(rep, dx))
+            with record_function("lm.trial_cost"):
+                new_values = cp.apply_step(values, dx)
+                new_cost = cp.cost(new_values)
+            gradient_norm = torch.linalg.vector_norm(g)
+            step_norm = torch.linalg.vector_norm(dx)
+            rho = compute_step_quality_t(current_cost, new_cost, predicted)
+            accepted = rho > 1e-4
+            good = rho > dl.good_step_quality
+            poor = rho < dl.poor_step_quality
+            new_delta = torch.where(
+                good, torch.clamp_max(torch.maximum(delta, 3.0 * step_norm), dl.trust_region_max),
+                torch.where(poor, torch.clamp_min(delta * dl.trust_region_decrease_factor,
+                                                  dl.trust_region_min), delta))
+            new_mu = torch.where(
+                good, torch.clamp_min(mu / (0.5 * dl.mu_increase_factor), dl.min_mu), mu)
+            values = tuple(torch.where(accepted, new, old) for new, old in zip(new_values, values))
+            cost = torch.where(accepted, new_cost, current_cost)
+            # reuse only what a rejected step left: the parameters have not moved
+            valid = ~accepted & poor & dl.enable_step_reuse
+            status = check_convergence_t(
+                iteration=iteration,
+                current_cost=current_cost,
+                new_cost=cost,
+                parameter_norm=cp.parameter_norm(values),
+                parameter_update_norm=step_norm,
+                gradient_norm=gradient_norm,
+                step_accepted=accepted,
+                cfg=ccfg,
+                trust_region_radius=new_delta,
+            )
+            return graphs.assign(state, (
+                *values, new_delta, new_mu, cost, iteration + 1, status, gradient_norm,
+                step_norm, rho, n_succ + accepted, n_fail + ~accepted, cost0,
+                reused + can_reuse, valid, count, g, dx_gn, cauchy, *rep))
+
+        return step

@@ -138,4 +138,5 @@ class GaussNewton(LevenbergMarquardt):
                 *new_values, damping, nu, new_cost, iteration + 1, status, scale,
                 gradient_norm, step_norm, torch.ones_like(rho), n_succ + 1, n_fail, cost0))
 
+        step.solve_fn = solve_fn
         return step

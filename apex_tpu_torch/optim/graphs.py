@@ -21,6 +21,14 @@ conditional node, so a branch here splits the capture
   keeps the old state where ``pred`` is false, so every kernel of every
   branch is initialized before capture, with no host read.
 
+``while_update(pred, body, max_trips, *state)`` is the reference's
+``lax.while_loop``: ``body`` is captured once, as one program, and replayed
+while a one-byte flag, ``pred`` of the state after each trip, holds, for
+``max_trips`` trips at most (eager: one read per trip; warm-up: every trip
+masked by ``torch.where``). The general tier's and the QR sweep's retry
+ladders and plain PCG (in chunks of ``PCG_CHUNK`` iterations) run through
+it.
+
 ``uncaptured(fn, *inputs)`` is a call that cannot be captured: torch
 2.11's ``linalg.eigh`` reads its error flag back after the factorization.
 Under capture the graph ends there and the call runs eagerly between two
@@ -122,6 +130,12 @@ def warmup_mode():
     return _Mode("warmup")
 
 
+def warming_up() -> bool:
+    """Whether steps run in their warm-up form: a counter of the work done
+    leaves the warm-up's copy of a step out."""
+    return _mode == "warmup"
+
+
 def assign(state, new):
     """The step's result as its state: copied into ``state`` in place under
     capture (``state`` is static there), ``new`` itself otherwise."""
@@ -174,6 +188,37 @@ def ladder(bad, stage_fn, stages, *state):
     return run(0, *state)
 
 
+def while_update(pred, body, max_trips, *state):
+    """``state = body(*state)`` while the 0-d bool ``pred(*state)`` holds,
+    ``max_trips`` times at most (a tuple either way). Under capture
+    ``body`` is one program replayed once per trip, writing ``state`` in
+    place, so its tensors must belong to the caller alone."""
+    if _mode == "warmup":
+        for _ in range(max_trips):
+            state = masked_update(pred(*state), body, *state)
+        return tuple(state)
+    if _mode == "eager":
+        for _ in range(max_trips):
+            if not read_flag(pred(*state)):
+                break
+            state = body(*state)
+        return tuple(state)
+    rec = _recorder
+    flag = pred(*state)
+    rec.end_graph()
+    rec.programs.append([])
+    rec.begin_graph()
+    new = body(*state)
+    for old, value in zip(state, new):
+        old.copy_(value)
+    flag.copy_(pred(*state))
+    rec.end_graph()
+    trip = rec.programs.pop()
+    rec.programs[-1].append(_Loop(flag, trip, max_trips))
+    rec.begin_graph()
+    return tuple(state)
+
+
 def uncaptured(fn, *inputs):
     """``fn(*inputs)``, a tensor of the shape and dtype of ``inputs[0]``,
     for a call that cannot be captured. Under capture it runs at replay,
@@ -208,6 +253,13 @@ class _Branch:
         self.body = body
 
 
+class _Loop:
+    def __init__(self, flag, body, max_trips):
+        self.flag = flag
+        self.body = body
+        self.max_trips = max_trips
+
+
 class _Recorder:
     def __init__(self, pool):
         self.pool = pool
@@ -238,6 +290,11 @@ def _replay(program):
         elif isinstance(item, _Uncaptured):
             item.out.copy_(item.fn(*item.inputs))
             uncaptured_calls += 1
+        elif isinstance(item, _Loop):
+            for _ in range(item.max_trips):
+                if not read_flag(item.flag):
+                    break
+                _replay(item.body)
         elif read_flag(item.pred):
             _replay(item.body)
 

@@ -27,8 +27,8 @@ block elimination, any sparsity); ``schur_implicit``, alias
 ``iterative_schur``, and ``schur_explicit``, aliases ``sparse_schur`` and
 ``sparse_schur_complement`` (bundle adjustment), with ``schur`` /
 ``schur_auto`` choosing the explicit variant up to 4096 reduced camera
-DOF; ``pcg`` (matrix-free CG on the normal equations). ``banded_qr``,
-``pcg`` and the general tier run in python mode only (ROADMAP A.8b).
+DOF; ``pcg`` (matrix-free CG on the normal equations). Every one runs in
+both modes.
 
 In python mode damping, nu and the step quality are numpy scalars of the
 problem's dtype, updated in that dtype as the JAX package updates them in
@@ -163,13 +163,16 @@ def _first_iteration(iteration, first, later):
     return first() if iteration == 0 else later
 
 
-# jit mode's state after the pool tensors, each a 0-d tensor but
-# jacobi_scale [D]: the reference's loop state, with the initial cost
-JIT_STATE = ("damping", "nu", "cost", "iteration", "status", "jacobi_scale",
-             "gradient_norm", "step_norm", "rho", "n_success", "n_fail", "initial_cost")
-
-
 class LevenbergMarquardt:
+    # the names of jit mode's state after the pool tensors, in order (each
+    # a 0-d tensor but jacobi_scale [D]): the reference's loop state, with
+    # the initial cost. A subclass names its own (DogLeg).
+    JIT_STATE = ("damping", "nu", "cost", "iteration", "status", "jacobi_scale",
+                 "gradient_norm", "step_norm", "rho", "n_success", "n_fail", "initial_cost")
+    # jit state read with the result and added to the solver's attribute of
+    # the same name
+    JIT_COUNTERS = ()
+
     def __init__(self, config: Optional[LevenbergMarquardtConfig] = None):
         self.config = config or LevenbergMarquardtConfig()
         # step functions per compiled problem: the Schur structure analysis
@@ -182,8 +185,8 @@ class LevenbergMarquardt:
     def _make_solve_fn(self, cp: CompiledProblem, sync_free: bool = False):
         """linearize_and_solve(values, damping, iteration, jacobi_scale)
         -> (dx, g, cost, scale, predicted). ``sync_free`` (jit mode):
-        damping and iteration are device tensors, PCG reads its flag per
-        chunk, and the solvers jit mode does not run yet raise."""
+        damping and iteration are device tensors, and PCG reads its flag
+        per chunk."""
         cfg = self.config
         aliases = {
             "sparse_cholesky": "banded_cholesky",
@@ -192,12 +195,6 @@ class LevenbergMarquardt:
             "iterative_schur": "schur_implicit",
         }
         solver_type = aliases.get(cfg.linear_solver_type, cfg.linear_solver_type)
-
-        def python_only(what):
-            if sync_free:
-                raise NotImplementedError(
-                    f"{what} in mode='jit' is ROADMAP A.8b; it runs in mode='python'")
-
         if solver_type == "banded_qr":
             from ..linalg import banded
 
@@ -205,8 +202,6 @@ class LevenbergMarquardt:
             # stacked-J QR, which is at least as rank-robust
             if banded.block_bandwidth(cp) > banded.MAX_BANDWIDTH:
                 solver_type = "dense_qr"
-            else:
-                python_only(f"linear solver {cfg.linear_solver_type!r}")
         if solver_type == "sparse_general" or (
                 solver_type == "banded_cholesky" and cfg.banded_panel is None):
             from ..linalg import banded
@@ -218,7 +213,6 @@ class LevenbergMarquardt:
             if solver_type == "sparse_general" or (
                     banded.block_bandwidth(cp) > banded.MAX_BANDWIDTH
                     and GeneralSparseCholesky.suitable(cp)):
-                python_only(f"the general-sparsity tier ({cfg.linear_solver_type!r})")
                 gs = GeneralSparseCholesky(cp)
                 if gs.healthy() or solver_type == "sparse_general":
                     return self._make_general_solve_fn(gs)
@@ -229,8 +223,7 @@ class LevenbergMarquardt:
         if solver_type == "dense_qr":
             return self._make_dense_qr_solve_fn(cp)
         if solver_type == "pcg":
-            python_only("linear solver 'pcg'")
-            return self._make_pcg_solve_fn(cp)
+            return self._make_pcg_solve_fn(cp, sync_free)
         if solver_type not in ("schur_explicit", "schur_implicit", "sparse_schur",
                                "schur", "schur_auto"):
             raise ValueError(f"unknown linear solver {cfg.linear_solver_type!r}")
@@ -277,14 +270,14 @@ class LevenbergMarquardt:
         solve_schur.schur_context = ctx
         return solve_schur
 
-    def _make_pcg_solve_fn(self, cp: CompiledProblem):
+    def _make_pcg_solve_fn(self, cp: CompiledProblem, sync_free: bool = False):
         """Matrix-free block-preconditioned CG on the normal equations."""
         from ..linalg.iterative import IterativeNormalSolver
 
         cfg = self.config
         it_solver = IterativeNormalSolver(
             cp, max_iterations=cfg.pcg_max_iterations * 3,
-            tolerance=min(cfg.pcg_tolerance, 1e-8))
+            tolerance=min(cfg.pcg_tolerance, 1e-8), sync_free=sync_free)
 
         def solve_pcg(values, damping, iteration, jacobi_scale):
             dx, g, cost = it_solver.solve(values, damping)
@@ -619,6 +612,7 @@ class LevenbergMarquardt:
                 *values, damping, nu, cost, iteration + 1, status, scale, gradient_norm,
                 step_norm, rho, n_succ + accepted, n_fail + ~accepted, cost0))
 
+        step.solve_fn = solve_fn
         return step
 
     def _optimize_jit(self, cp: CompiledProblem) -> SolverResult:
@@ -633,7 +627,8 @@ class LevenbergMarquardt:
         run = self._jit_cache.get(cp)
         if run is None:
             run = self._jit_cache[cp] = _JitRun(
-                cp, self._make_device_init(cp), self._make_device_step(cp))
+                cp, self.JIT_STATE, self._make_device_init(cp),
+                self._make_device_step(cp))
         run.init()
         chunk = max(1, -(-cfg.max_iterations // 8))
         done = 0
@@ -651,14 +646,17 @@ class LevenbergMarquardt:
 
     def _finish_jit(self, cp: CompiledProblem, start, run, status) -> SolverResult:
         """``SolverResult`` as the reference's ``_finish_jit`` builds it: one
-        read of the scalars, no per-iteration statistics."""
+        read of the scalars (``JIT_COUNTERS`` among them), no per-iteration
+        statistics."""
         values = run.state[:len(cp.pools)]
-        st = dict(zip(JIT_STATE, run.state[len(cp.pools):]))
+        st = dict(zip(self.JIT_STATE, run.state[len(cp.pools):]))
         graphs.host_reads += 1
-        cost0, cost, iteration, gnorm, snorm, n_succ, n_fail = torch.stack([
+        cost0, cost, iteration, gnorm, snorm, n_succ, n_fail, *counts = torch.stack([
             st[k].to(torch.float64) for k in ("initial_cost", "cost", "iteration",
                                               "gradient_norm", "step_norm", "n_success",
-                                              "n_fail")]).tolist()
+                                              "n_fail", *self.JIT_COUNTERS)]).tolist()
+        for name, count in zip(self.JIT_COUNTERS, counts):
+            setattr(self, name, getattr(self, name) + int(count))
         covariances = None
         if self.config.compute_covariances:
             from ..core.covariance import compute_covariances
@@ -687,10 +685,10 @@ class _JitRun:
     initial state and the step captured (``graphs.Captured``, one memory
     pool), on the CPU the same functions called eagerly."""
 
-    def __init__(self, cp: CompiledProblem, init, step):
+    def __init__(self, cp: CompiledProblem, names, init, step):
         t0 = time.perf_counter()
         self._init, self._step = init, step
-        self._status = len(cp.pools) + JIT_STATE.index("status")
+        self._status = len(cp.pools) + names.index("status")
         self.state = init()
         self._graphs = None
         if cp.device.type == "cuda":

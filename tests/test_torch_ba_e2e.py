@@ -17,6 +17,7 @@ from apex_tpu.io import bal as jax_bal
 from apex_tpu.io import synthetic as jax_synthetic
 from apex_tpu_torch.ba import build_ba_problem, rmse
 from apex_tpu_torch.io import bal, synthetic
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 REPO = Path(__file__).resolve().parent.parent
 EXACT = dict(pcg_forcing=False, pcg_tolerance=1e-10, pcg_max_iterations=500)
@@ -154,16 +155,16 @@ def test_sparse_general_matches_apex_tpu(small_ba):
     np.testing.assert_allclose(rt.final_cost, rj.final_cost, rtol=1e-8)
 
 
-@pytest.mark.parametrize("change,match", [
-    # both Schur solvers run in jit mode (tests/test_torch_jit.py); the
-    # solvers jit mode does not take yet raise
-    (dict(linear_solver_type="pcg", mode="jit"), "ROADMAP A.8b"),
-    (dict(linear_solver_type="sparse_general", mode="jit"), "ROADMAP A.8b"),
-])
-def test_not_ported_paths_raise(small_ba, change, match):
+@pytest.mark.parametrize("solver", ["pcg", "sparse_general"])
+def test_not_ported_paths_raise(small_ba, solver):
+    """The last solvers jit mode took (ROADMAP A.8b) run it on bundle
+    adjustment: python mode's iterations, status and final cost (rtol
+    1e-12). Every solver of the menu now runs in both modes."""
     cp = build_ba_problem(small_ba).compile(device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(**change)).optimize(cp)
+    rp, rj = (apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+        linear_solver_type=solver, mode=mode)).optimize(cp) for mode in ("python", "jit"))
+    assert (rj.iterations, rj.status) == (rp.iterations, rp.status)
+    np.testing.assert_allclose(rj.final_cost, rp.final_cost, rtol=1e-12)
 
 
 def test_other_losses_not_ported():

@@ -10,6 +10,7 @@ from apex_tpu.io import synthetic as jax_synthetic
 from apex_tpu.linalg import banded as jbanded
 from apex_tpu_torch.io import synthetic
 from apex_tpu_torch.linalg import banded
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 
 def _random_banded_spd(D, half_band, rng):

@@ -14,6 +14,7 @@ from apex_tpu.linalg.banded_qr import make_blocktri_qr_core as jax_qr_core
 from apex_tpu_torch.io import synthetic
 from apex_tpu_torch.linalg.banded import make_blocktri_cr_core
 from apex_tpu_torch.linalg.banded_qr import make_blocktri_qr_core
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 
 def _random_blocktri(n, m, seed, spd_shift=None):

@@ -12,6 +12,7 @@ from apex_tpu.manifolds import SE2 as JSE2
 from apex_tpu.manifolds import SE3 as JSE3
 from apex_tpu_torch.factors import BetweenFactor
 from apex_tpu_torch.manifolds import SE2, SE3
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 RTOL = 1e-12
 # (port group, JAX group) by name

@@ -15,6 +15,7 @@ from apex_tpu_torch.convert import values_from_jax
 from apex_tpu_torch.core import covariance as cov
 from apex_tpu_torch.io import synthetic
 from apex_tpu_torch.linalg import dense
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 
 def _assert_blocks(got, want, rtol=1e-8):

@@ -477,6 +477,8 @@ def _jit_problem(name, fix_first=False):
 
 
 def _jit_solver(kind, **kw):
+    if kind == "dl":
+        return apx.DogLeg(apx.DogLegConfig(**kw))
     if kind == "gn":
         return apx.GaussNewton(apx.GaussNewtonConfig(**kw))
     return apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(**kw))
@@ -486,14 +488,14 @@ def _eager_jit(solver, cp):
     """jit mode's step run eagerly on the card, without capture: (status,
     iterations, final cost)."""
     from apex_tpu_torch.optim import graphs
-    from apex_tpu_torch.optim.lm import JIT_STATE
 
     init, step = solver._make_device_init(cp), solver._make_device_step(cp)
     state = init()
     k = len(cp.pools)
-    while graphs.read_status(state[k + JIT_STATE.index("status")]) == apx.Status.RUNNING:
+    names = solver.JIT_STATE
+    while graphs.read_status(state[k + names.index("status")]) == apx.Status.RUNNING:
         state = step(*state)
-    st = dict(zip(JIT_STATE, state[k:]))
+    st = dict(zip(names, state[k:]))
     return apx.Status(int(st["status"])), int(st["iteration"]), float(st["cost"])
 
 
@@ -548,3 +550,65 @@ def test_jit_timeout_on_the_card(card):
         dtype=torch.float64, device=card)
     r = apx.LevenbergMarquardt(cfg).optimize(cp)
     assert r.status == apx.Status.TIMEOUT and r.iterations == 2
+
+
+# the paths jit mode took last (ROADMAP A.8b): DogLeg, the QR sweep, plain
+# PCG and the general tier (a lattice with a dense core of at most 8 blocks)
+JIT_A8B_CASES = {
+    "se3_sparse_qr": ("medium_se3_250.g2o", "lm", dict(linear_solver_type="sparse_qr")),
+    "se2_pcg": ("medium_se2_300.g2o", "lm", dict(linear_solver_type="pcg")),
+    "se3_gauss_newton_sparse_qr": ("medium_se3_250.g2o", "gn",
+                                   dict(linear_solver_type="sparse_qr")),
+    "se3_dogleg": ("medium_se3_250.g2o", "dl", dict(linear_solver_type="sparse_cholesky")),
+    "se2_dogleg": ("medium_se2_300.g2o", "dl", dict(linear_solver_type="dense_cholesky")),
+    "grid_sparse_general": ("grid", "lm", dict(linear_solver_type="sparse_general",
+                                               max_iterations=30)),
+}
+
+
+@pytest.mark.parametrize("case", list(JIT_A8B_CASES))
+def test_jit_a8b_paths_captured_match_cpu(card, case, monkeypatch):
+    """Each path captures (two programs: the initial state and the step),
+    a second solve replays them without a new capture and gives the first
+    one's result, plain PCG runs its preconditioner's eigh outside the
+    graphs once per LM iteration, and the captured solve gives the CPU's
+    jit solve: the same iterations and status, final cost within rtol
+    1e-8 (index_add_ sums in atomic order)."""
+    from apex_tpu_torch.linalg import sparse_general as sg
+    from apex_tpu_torch.optim import graphs
+
+    name, kind, kw = JIT_A8B_CASES[case]
+    if name == "grid":
+        monkeypatch.setattr(sg, "GeneralSparseCholesky", _capped_general(8))
+        problem = synthetic.synthetic_pose_graph_grid3d(6, 6, 4, seed=1).to_problem()
+    else:
+        problem = _jit_problem(name, fix_first=kind == "gn")
+    cp = problem.compile(dtype=torch.float64, device=card)
+    solver = _jit_solver(kind, mode="jit", **kw)
+    graphs.reset_counters()
+    r1 = solver.optimize(cp)
+    assert graphs.captures == 2 and graphs.replays >= r1.iterations
+    if kw["linear_solver_type"] == "pcg":
+        assert graphs.uncaptured_calls == r1.iterations
+    r2 = solver.optimize(cp)
+    assert graphs.captures == 2 and len(solver._jit_cache) == 1
+    assert (r2.iterations, r2.status) == (r1.iterations, r1.status)
+    np.testing.assert_allclose(r2.final_cost, r1.final_cost, rtol=1e-8)
+    rh = _jit_solver(kind, mode="jit", **kw).optimize(problem.compile(dtype=torch.float64,
+                                                                      device="cpu"))
+    assert r1.converged and (r1.iterations, r1.status) == (rh.iterations, rh.status)
+    np.testing.assert_allclose(r1.final_cost, rh.final_cost, rtol=1e-8)
+
+
+def test_jit_dogleg_reuse_on_the_card(card):
+    """DogLeg's fresh/reuse branch replayed on the card: the BA problem's
+    Schur fallback for 30 iterations, whose rejected steps retry from the
+    cache, gives python mode's reused steps, iterations and status on the
+    card, and its cost (rtol 1e-10)."""
+    cp = _jit_problem("ba").compile(dtype=torch.float64, device=card)
+    kw = dict(linear_solver_type="schur_explicit", max_iterations=30)
+    python, jit = (_jit_solver("dl", mode=mode, **kw) for mode in ("python", "jit"))
+    rp, rj = python.optimize(cp), jit.optimize(cp)
+    assert python.reused_steps > 10 and jit.reused_steps == python.reused_steps
+    assert (rj.iterations, rj.status) == (rp.iterations, rp.status)
+    np.testing.assert_allclose(rj.final_cost, rp.final_cost, rtol=1e-10)

@@ -21,6 +21,7 @@ from apex_tpu_torch.factors import ManifoldPriorFactor, PriorFactor
 from apex_tpu_torch.io import synthetic
 from apex_tpu_torch.linalg import banded, dense
 from apex_tpu_torch.manifolds import get
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 TOL = 1e-12
 

@@ -14,6 +14,7 @@ from apex_tpu.linalg.iterative import IterativeNormalSolver as JaxIterative
 from apex_tpu_torch.convert import values_from_jax
 from apex_tpu_torch.io import synthetic
 from apex_tpu_torch.linalg.iterative import IterativeNormalSolver
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 DAMPING = 1e-3
 
@@ -137,9 +138,9 @@ def test_lm_pcg_options(monkeypatch):
     seen = {}
 
     class Spy(IterativeNormalSolver):
-        def __init__(self, cp, max_iterations, tolerance):
+        def __init__(self, cp, max_iterations, tolerance, **kw):
             seen.update(max_iterations=max_iterations, tolerance=tolerance)
-            super().__init__(cp, max_iterations, tolerance)
+            super().__init__(cp, max_iterations, tolerance, **kw)
 
     monkeypatch.setattr(iterative, "IterativeNormalSolver", Spy)
     cp = synthetic.synthetic_pose_graph_2d(n_poses=20, seed=1).to_problem().compile(

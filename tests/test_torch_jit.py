@@ -1,10 +1,13 @@
-"""``mode="jit"`` of the port (LM and Gauss-Newton, the whole solve on the
-device) against the JAX package's ``mode="jit"`` and against the port's
-python mode, on the CPU in f64: the medium SE3 and SE2 fixtures through
-every jit solver, the small BA problem through both Schur variants and
-``schur``, Gauss-Newton, ``damping="auto"``, Jacobi scaling, the timeout,
-the result's jit fields, the host reads, f32, and the masked form of the
-step that runs before a CUDA graph is captured (no host read at all).
+"""``mode="jit"`` of the port (LM, Gauss-Newton and DogLeg, the whole solve
+on the device) against the JAX package's ``mode="jit"`` and against the
+port's python mode, on the CPU in f64: the medium SE3 and SE2 fixtures
+through every solver (``sparse_qr``, ``pcg`` and the general tier too), the
+small BA problem through both Schur variants, ``schur`` and DogLeg's Schur
+fallback, a lattice through the general tier with elimination levels, a
+ring through ``sparse_cholesky``'s switch to it, Gauss-Newton, DogLeg,
+``damping="auto"``, Jacobi scaling, the timeout, the result's jit fields,
+the host reads, f32, and the masked form of the step that runs before a
+CUDA graph is captured (no host read at all).
 
 Each JAX reference solve runs once per module (``jax_jit``): its
 ``while_loop`` compiles for a few seconds."""
@@ -18,7 +21,9 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import apex_tpu as jax_apx
+import apex_tpu.linalg.sparse_general as jax_sg
 import apex_tpu_torch as apx
+import apex_tpu_torch.linalg.sparse_general as sg
 from apex_tpu.ba import build_ba_problem as jax_build
 from apex_tpu.io import load_g2o as jax_load_g2o
 from apex_tpu.io import synthetic as jax_synthetic
@@ -47,10 +52,70 @@ CASES = {
                                              use_jacobi_scaling=True)),
     "se2_min_cost_threshold": ("se2", "lm", dict(linear_solver_type="sparse_cholesky",
                                                  min_cost_threshold=0.1)),
+    "se3_sparse_qr": ("se3", "lm", dict(linear_solver_type="sparse_qr")),
+    "se2_sparse_qr": ("se2", "lm", dict(linear_solver_type="sparse_qr")),
+    "se2_pcg": ("se2", "lm", dict(linear_solver_type="pcg")),
+    "se3_gauss_newton_sparse_qr": ("se3", "gn", dict(linear_solver_type="sparse_qr")),
+    "se3_dogleg": ("se3", "dl", dict(linear_solver_type="sparse_cholesky")),
+    "se2_dogleg": ("se2", "dl", dict(linear_solver_type="dense_cholesky")),
+    # the Schur name falls back to a Cholesky tier; the packages agree for
+    # 8 iterations here (ROADMAP queue C)
+    "ba_dogleg": ("ba", "dl", dict(linear_solver_type="schur_explicit", max_iterations=8)),
+    # elimination levels: GeneralSparseCholesky with base_cap=8 (LEVELS)
+    "grid_sparse_general": ("grid", "lm", dict(linear_solver_type="sparse_general")),
+    # a 300-pose ring in name order: a bandwidth above 1536 columns, so
+    # sparse_cholesky switches to the general tier
+    "ring_sparse_cholesky_switch": ("ring", "lm", dict(linear_solver_type="sparse_cholesky")),
 }
+# the cases that run the general tier with a dense core of at most 8 blocks
+# (the ring's whole graph would otherwise be one 1,800-column dense core)
+LEVELS = {"grid_sparse_general", "ring_sparse_cholesky_switch"}
+# the ring keeps its name order (x0, x1, x10, x100, ...): a wide band
+ORDERING = {"ring": "name"}
+
+
+def _ring(pkg, n=300, seed=0):
+    """An SE3 ring of ``n`` poses: noisy near-identity measurements (so the
+    optimum is not zero) and initial poses perturbed from a seed."""
+    rng = np.random.default_rng(seed)
+
+    def pose(t_scale, q_scale):
+        q = np.append(rng.normal(scale=q_scale, size=3), 1.0)
+        return np.concatenate([rng.normal(scale=t_scale, size=3), q / np.linalg.norm(q)])
+
+    p = pkg.Problem()
+    for i in range(n):
+        p.add_variable(f"x{i}", "SE3", pose(0.02, 0.005))
+    for i in range(n):
+        p.add_residual_block([f"x{i}", f"x{(i + 1) % n}"],
+                             pkg.BetweenFactor("SE3", pose(0.01, 0.005)))
+    return p
+
+
+def _with_base_cap(cls, base_cap):
+    class Capped(cls):
+        def __init__(self, cp, deg_cap=24, min_picked=32, **_):
+            super().__init__(cp, deg_cap=deg_cap, base_cap=base_cap, min_picked=min_picked)
+
+    return Capped
+
+
+def _levels(mp, case):
+    """For a case of ``LEVELS``, both packages' general tier with a dense
+    core of at most 8 blocks, so that a small graph runs elimination
+    levels (both LM modules import the class when they build the solve)."""
+    if case in LEVELS:
+        for mod in (sg, jax_sg):
+            mp.setattr(mod, "GeneralSparseCholesky",
+                       _with_base_cap(mod.GeneralSparseCholesky, 8))
 
 
 def _problem(pkg, name):
+    if name == "ring":
+        return _ring(pkg)
+    if name == "grid":
+        return (synthetic if pkg is apx else jax_synthetic).synthetic_pose_graph_grid3d(
+            4, 3, 3, seed=0).to_problem()
     if name == "ba":
         ds = (synthetic if pkg is apx else jax_synthetic).synthetic_ba(
             n_cameras=8, n_points=150, seed=0)
@@ -59,14 +124,16 @@ def _problem(pkg, name):
     return (apx.load_g2o if pkg is apx else jax_load_g2o)(FIXTURES / fname).to_problem()
 
 
-def _compile(pkg, problem, dtype=np.float64):
+def _compile(pkg, problem, dtype=np.float64, ordering="auto"):
     if pkg is apx:
         return problem.compile(dtype=torch.float64 if dtype == np.float64 else torch.float32,
-                               device="cpu")
-    return problem.compile(dtype=dtype)
+                               device="cpu", ordering=ordering)
+    return problem.compile(dtype=dtype, ordering=ordering)
 
 
 def _solver(pkg, kind, **kw):
+    if kind == "dl":
+        return pkg.DogLeg(pkg.DogLegConfig(**kw))
     if kind == "gn":
         return pkg.GaussNewton(pkg.GaussNewtonConfig(**kw))
     return pkg.LevenbergMarquardt(pkg.LevenbergMarquardtConfig(**kw))
@@ -76,7 +143,11 @@ def _solver(pkg, kind, **kw):
 def one_thread():
     """One BLAS / LAPACK / OpenMP thread for this module's small solves:
     beside other test workers, multithreaded QR and Cholesky calls of this
-    size spend their time spinning against each other."""
+    size spend their time spinning against each other. scipy's LAPACK,
+    which the JAX package's CPU linear algebra calls, is loaded first, so
+    that the limit covers it too."""
+    import scipy.linalg  # noqa: F401
+
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     with threadpoolctl.threadpool_limits(1):
@@ -86,7 +157,7 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def problems():
-    return {name: _problem(apx, name) for name in ("se3", "se2", "ba")}
+    return {name: _problem(apx, name) for name in ("se3", "se2", "ba", "grid", "ring")}
 
 
 @pytest.fixture(scope="module")
@@ -100,8 +171,10 @@ def jax_jit():
             name, kind, kw = CASES[case]
             with pytest.MonkeyPatch.context() as mp:
                 mp.setenv("APEX_TPU_UNIFORM", "0")
+                _levels(mp, case)
                 done[case] = _solver(jax_apx, kind, mode="jit", **kw).optimize(
-                    _compile(jax_apx, _problem(jax_apx, name)))
+                    _compile(jax_apx, _problem(jax_apx, name),
+                             ordering=ORDERING.get(name, "auto")))
         return done[case]
 
     return get
@@ -110,19 +183,25 @@ def jax_jit():
 @pytest.fixture(scope="module")
 def port():
     """The port's (python, jit) solves of each case, with the jit solve's
-    host reads, once per module."""
+    host reads, once per module; ``get.solvers[case]`` holds the (python,
+    jit) solver objects."""
     done = {}
 
     def get(case, problems):
         if case not in done:
             name, kind, kw = CASES[case]
-            cp = _compile(apx, problems[name])
-            rp = _solver(apx, kind, mode="python", **kw).optimize(cp)
-            graphs.reset_counters()
-            rj = _solver(apx, kind, mode="jit", **kw).optimize(cp)
+            with pytest.MonkeyPatch.context() as mp:
+                _levels(mp, case)
+                cp = _compile(apx, problems[name], ordering=ORDERING.get(name, "auto"))
+                python, jit = (_solver(apx, kind, mode=mode, **kw) for mode in ("python", "jit"))
+                rp = python.optimize(cp)
+                graphs.reset_counters()
+                rj = jit.optimize(cp)
             done[case] = rp, rj, graphs.host_reads, graphs.status_reads
+            get.solvers[case] = python, jit
         return done[case]
 
+    get.solvers = {}
     return get
 
 
@@ -138,7 +217,9 @@ def test_jit_matches_jax_jit(case, jax_jit, port, problems):
         rj.successful_steps, rj.unsuccessful_steps)
     np.testing.assert_allclose(rt.initial_cost, rj.initial_cost, rtol=1e-12)
     np.testing.assert_allclose(rt.final_cost, rj.final_cost, rtol=1e-8)
-    assert rt.converged
+    # DogLeg on the BA problem is held to the reference for its first 8
+    # iterations only
+    assert rt.converged or (case, rt.status) == ("ba_dogleg", apx.Status.MAX_ITERATIONS_REACHED)
 
 
 def test_min_cost_threshold_stops_jit(jax_jit, port, problems):
@@ -275,58 +356,127 @@ class _NoHostRead(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("case", ["se3_sparse_cholesky", "se2_dense_cholesky", "se2_dense_qr",
-                                  "ba_schur_explicit", "ba_schur_implicit", "se3_gauss_newton",
-                                  "se3_damping_auto", "se2_jacobi_scaling"])
-def test_masked_step_reads_nothing(case, port, problems):
-    """The form the card warms up before capture: every branch runs and
-    ``torch.where`` selects, with no host read and no tensor from host data
-    in the initial state or any step. Its iterations reproduce the jit
-    solve: the same status and cost (rtol 1e-12)."""
-    name, kind, kw = CASES[case]
-    _, rj, _, _ = port(case, problems)
-    solver = _solver(apx, kind, mode="jit", **kw)
-    cp = _compile(apx, problems[name])
+MASKED = ["se3_sparse_cholesky", "se2_dense_cholesky", "se2_dense_qr", "ba_schur_explicit",
+          "ba_schur_implicit", "se3_gauss_newton", "se3_damping_auto", "se2_jacobi_scaling",
+          "se3_sparse_qr", "se2_sparse_qr", "se2_pcg", "se3_gauss_newton_sparse_qr",
+          "se3_dogleg", "se2_dogleg", "ba_dogleg", "grid_sparse_general",
+          "ring_sparse_cholesky_switch"]
+
+
+def _masked_solve(solver, cp, iterations):
+    """``iterations`` steps from the initial state in the warm-up form,
+    under ``_NoHostRead``: the named jit state after them."""
     init, step = solver._make_device_init(cp), solver._make_device_step(cp)
     with graphs.warmup_mode(), _NoHostRead():
         state = init()
-        for _ in range(rj.iterations):
+        for _ in range(iterations):
             state = step(*state)
-    st = dict(zip(apx.optim.lm.JIT_STATE, state[len(cp.pools):]))
+    return dict(zip(solver.JIT_STATE, state[len(cp.pools):]))
+
+
+@pytest.mark.parametrize("case", MASKED)
+def test_masked_step_reads_nothing(case, port, problems):
+    """The form the card warms up before capture: every branch runs and
+    ``torch.where`` selects, with no host read and no tensor from host data
+    in the initial state or any step (DogLeg's fresh/reuse branch, the
+    general tier's elimination and ladder, the QR sweep's ladder and the
+    PCG chunks among them). Its iterations reproduce the jit solve: the
+    same status and cost (rtol 1e-12)."""
+    name, kind, kw = CASES[case]
+    _, rj, _, _ = port(case, problems)
+    with pytest.MonkeyPatch.context() as mp:
+        _levels(mp, case)
+        st = _masked_solve(_solver(apx, kind, mode="jit", **kw),
+                           _compile(apx, problems[name], ordering=ORDERING.get(name, "auto")),
+                           rj.iterations)
     assert int(st["iteration"]) == rj.iterations
     assert apx.Status(int(st["status"])) == rj.status
     np.testing.assert_allclose(float(st["cost"]), rj.final_cost, rtol=1e-12)
 
 
-@pytest.mark.parametrize("kind,solver,match", [
-    ("dl", "sparse_cholesky", "ROADMAP A.8b"),
-    ("lm", "sparse_qr", "ROADMAP A.8b"),
-    ("lm", "pcg", "ROADMAP A.8b"),
-    ("lm", "sparse_general", "ROADMAP A.8b"),
-    ("gn", "sparse_qr", "ROADMAP A.8b"),
-])
-def test_not_ported_jit_paths_raise(problems, kind, solver, match):
-    cp = _compile(apx, problems["se3"])
-    make = {"dl": lambda **kw: apx.DogLeg(apx.DogLegConfig(**kw))}.get(
-        kind, lambda **kw: _solver(apx, kind, **kw))
-    with pytest.raises(NotImplementedError, match=match):
-        make(mode="jit", linear_solver_type=solver).optimize(cp)
+def test_sparse_cholesky_switches_to_the_general_tier_in_jit(port, problems):
+    """Above a 1536-column bandwidth jit mode's sparse_cholesky takes the
+    general tier, as python mode does (the ring in name order; its solves
+    are held to the JAX package's by the CASES tests)."""
+    port("ring_sparse_cholesky_switch", problems)
+    _, jit = port.solvers["ring_sparse_cholesky_switch"]
+    (run,) = jit._jit_cache.values()
+    assert run._step.solve_fn.general_sparse.healthy()
 
 
-def test_sparse_cholesky_general_switch_raises_in_jit():
-    """Above a 1536-column bandwidth sparse_cholesky takes the general tier
-    (tests/test_torch_pose_graph_e2e.py's ring in name order), which jit
-    mode does not run yet."""
-    p = apx.Problem()
-    ident = np.array([0, 0, 0, 1.0, 0, 0, 0])
-    for i in range(300):
-        p.add_variable(f"x{i}", "SE3", ident)
-    for i in range(299):
-        p.add_residual_block([f"x{i}", f"x{i + 1}"], apx.BetweenFactor("SE3", ident))
-    p.add_residual_block(["x0", "x299"], apx.BetweenFactor("SE3", ident))
-    cp = p.compile(device="cpu", ordering="name")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8b"):
-        _solver(apx, "lm", mode="jit", linear_solver_type="sparse_cholesky").optimize(cp)
+def test_dogleg_reused_steps_match_python_mode(problems):
+    """DogLeg's steps taken from its cache, counted on the device in jit
+    mode and added to the solver's counter after the loop: on the BA
+    problem's Schur fallback, 30 iterations (past the 8 held to the
+    reference), whose rejected steps retry from the cache, python mode's
+    count, iterations, status and cost (rtol 1e-12); the warm-up form,
+    which reads nothing, counts the same."""
+    cp = _compile(apx, problems["ba"])
+    kw = dict(linear_solver_type="schur_explicit", max_iterations=30)
+    python, jit = (_solver(apx, "dl", mode=mode, **kw) for mode in ("python", "jit"))
+    rp, rj = python.optimize(cp), jit.optimize(cp)
+    assert python.reused_steps > 10 and jit.reused_steps == python.reused_steps
+    assert (rj.iterations, rj.status, rj.unsuccessful_steps) == (
+        rp.iterations, rp.status, rp.unsuccessful_steps)
+    np.testing.assert_allclose(rj.final_cost, rp.final_cost, rtol=1e-12)
+    st = _masked_solve(_solver(apx, "dl", mode="jit", **kw), cp, rp.iterations)
+    assert int(st["reused_steps"]) == python.reused_steps
+    np.testing.assert_allclose(float(st["cost"]), rp.final_cost, rtol=1e-12)
+
+
+def test_plain_pcg_reads_per_chunk(port, problems, monkeypatch):
+    """jit mode's plain PCG reads its continue flag once per PCG_CHUNK
+    iterations: ceil(k / PCG_CHUNK) + 1 reads for a solve of k CG
+    iterations (python mode's k, counted per LM iteration; at its cap of
+    600 iterations, 150), plus the status before each LM iteration and the
+    result."""
+    from apex_tpu_torch.linalg.iterative import IterativeNormalSolver
+
+    _, rj, reads, status_reads = port("se2_pcg", problems)
+    counts, hx = [], IterativeNormalSolver._hx
+    solve = IterativeNormalSolver.solve
+
+    def counted_hx(self, *args):
+        counts[-1] += 1
+        return hx(self, *args)
+
+    def counted_solve(self, *args):
+        counts.append(0)
+        return solve(self, *args)
+
+    monkeypatch.setattr(IterativeNormalSolver, "_hx", counted_hx)
+    monkeypatch.setattr(IterativeNormalSolver, "solve", counted_solve)
+    rp = _solver(apx, "lm", mode="python", **CASES["se2_pcg"][2]).optimize(
+        _compile(apx, problems["se2"]))
+    assert len(counts) == rp.iterations == rj.iterations and max(counts) > graphs.PCG_CHUNK
+    trips = -(-3 * apx.LevenbergMarquardtConfig().pcg_max_iterations // graphs.PCG_CHUNK)
+    # a PCG at its iteration cap reads no flag after its last chunk
+    chunks = sum(min(-(-k // graphs.PCG_CHUNK) + 1, trips) for k in counts)
+    assert reads == status_reads + chunks + 1 and status_reads == rj.iterations + 1
+
+
+def test_general_ladder_recovers_singular_block_in_jit():
+    """Gauss-Newton through the general tier with levels on a lattice whose
+    first pose is fixed: undamped, the fixed pose's block is singular, and
+    every solve climbs the ladder (tests/test_torch_sparse_general.py's
+    singular block). jit mode runs the ladder as a device loop: python
+    mode's iterations, status, cost (rtol 1e-12) and retry stages, also in
+    the warm-up form, which reads nothing."""
+    problem = synthetic.synthetic_pose_graph_grid3d(4, 3, 3, seed=2).to_problem(fix_first=True)
+    cp = _compile(apx, problem)
+    kw = dict(linear_solver_type="sparse_general")
+    with pytest.MonkeyPatch.context() as mp:
+        _levels(mp, "grid_sparse_general")
+        python, jit = (_solver(apx, "gn", mode=mode, **kw) for mode in ("python", "jit"))
+        rp, rj = python.optimize(cp), jit.optimize(cp)
+        st = _masked_solve(_solver(apx, "gn", mode="jit", **kw), cp, rp.iterations)
+    gs_python = python._step_cache[cp].solve_fn.general_sparse
+    gs_jit = jit._jit_cache[cp]._step.solve_fn.general_sparse
+    assert gs_python.sym.n_levels >= 1 and gs_python.retry_stages >= rp.iterations
+    assert gs_jit.retry_stages == gs_python.retry_stages
+    assert (rj.iterations, rj.status) == (rp.iterations, rp.status) and rp.converged
+    np.testing.assert_allclose(rj.final_cost, rp.final_cost, rtol=1e-12)
+    np.testing.assert_allclose(float(st["cost"]), rp.final_cost, rtol=1e-12)
 
 
 def test_unknown_mode_raises(problems):

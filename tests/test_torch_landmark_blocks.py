@@ -11,6 +11,7 @@ import torch
 from apex_tpu.kernels import invert_landmark_blocks_pallas
 from apex_tpu.linalg.schur import invert_landmark_blocks as jax_inverse
 from apex_tpu_torch.kernels import landmark_blocks as lb
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 
 def _blocks(n=2000, seed=0):

@@ -14,6 +14,7 @@ import torch
 from apex_tpu.core import corrector as jcorrector
 from apex_tpu.core import losses as jlosses
 from apex_tpu_torch.core import corrector, losses
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 # each constructor at its defaults, and the parameter sets that take the
 # other branches (Barron's Cauchy, L2 and general cases; p of the Lp norm)

@@ -14,6 +14,7 @@ from apex_tpu.manifolds import SO3 as JSO3
 from apex_tpu.manifolds import utils as jutils
 from apex_tpu_torch.manifolds import SE2, SE3, SO2, SO3, get
 from apex_tpu_torch.manifolds import utils as tutils
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 ATOL = 1e-12
 # the rotation part is the last ROT[name] tangent entries; act takes

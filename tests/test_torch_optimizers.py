@@ -19,6 +19,7 @@ from apex_tpu_torch.ba import build_ba_problem
 from apex_tpu_torch.factors.base import Factor
 from apex_tpu_torch.io import synthetic
 from apex_tpu_torch.optim.dogleg import _dogleg_step
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 # -- the step function ----------------------------------------------------------
 
@@ -264,8 +265,8 @@ def test_dogleg_schur_name_on_a_wide_band_takes_dense():
     from apex_tpu_torch.linalg import banded
 
     assert banded.block_bandwidth(tcp) > banded.MAX_BANDWIDTH
-    assemble, _, _ = _make(apx, "dl", linear_solver_type="schur")._hessian_functions(tcp)
-    H, g, _ = assemble(tcp.initial_values())
+    assemble, *_ = _make(apx, "dl", linear_solver_type="schur")._hessian_functions(tcp)
+    (H,), g, _ = assemble(tcp.initial_values())
     assert H.shape == (tcp.total_dof, tcp.total_dof) and g.shape == (tcp.total_dof,)
     runs = [_make(apx, "dl", linear_solver_type=s, max_iterations=1).optimize(tcp)
             for s in ("schur", "dense_cholesky")]
@@ -292,6 +293,25 @@ def test_dogleg_without_step_reuse_takes_the_same_path():
     np.testing.assert_allclose(r1.variables["xy"], r2.variables["xy"], rtol=1e-14)
 
 
+def test_dogleg_jit_reuses_steps_as_python_mode():
+    """Rosenbrock, whose first DogLeg steps are rejected and retried from
+    the cache: jit mode takes its fresh/reuse branch on the device and
+    counts the reused steps there, python mode's count and trajectory;
+    the JAX package's jit solve takes the same iterations and steps."""
+    runs = {}
+    for mode in ("python", "jit"):
+        solver = _make(apx, "dl", max_iterations=200, mode=mode)
+        runs[mode] = solver, solver.optimize(_compile(apx, _rosenbrock(apx, Rosenbrock)))
+    (sp, rp), (sj, rj) = runs["python"], runs["jit"]
+    assert sp.reused_steps > 10 and sj.reused_steps == sp.reused_steps
+    assert (rj.iterations, rj.status, rj.unsuccessful_steps) == (
+        rp.iterations, rp.status, rp.unsuccessful_steps)
+    np.testing.assert_allclose(rj.variables["xy"], rp.variables["xy"], rtol=1e-12)
+    rx = _make(jax_apx, "dl", max_iterations=200, mode="jit").optimize(
+        _compile(jax_apx, _rosenbrock(jax_apx, JaxRosenbrock)))
+    _assert_same_solve(rj, rx)
+
+
 def test_dogleg_stats_and_covariances():
     pt = _graph_problems("ring50", fix_first=True)[1]
     res = _make(apx, "dl", collect_stats=True, compute_covariances=True).optimize(
@@ -307,13 +327,12 @@ def test_modes_and_exports():
     assert apx.GaussNewton is apx.optim.GaussNewton and apx.DogLeg is apx.optim.DogLeg
     assert {"GaussNewton", "GaussNewtonConfig", "DogLeg", "DogLegConfig"} <= set(apx.__all__)
     pt = _graph_problems("ring50")[1]
-    # GN runs in jit mode, as python mode does; DogLeg's jit mode is A.8b
-    rp, rj = (_make(apx, "gn", mode=mode).optimize(_compile(apx, pt))
-              for mode in ("python", "jit"))
-    assert (rj.iterations, rj.status) == (rp.iterations, rp.status)
-    np.testing.assert_allclose(rj.final_cost, rp.final_cost, rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8b"):
-        _make(apx, "dl", mode="jit").optimize(_compile(apx, pt))
+    # GN and DogLeg run in jit mode, as python mode does
+    for kind in ("gn", "dl"):
+        rp, rj = (_make(apx, kind, mode=mode).optimize(_compile(apx, pt))
+                  for mode in ("python", "jit"))
+        assert (rj.iterations, rj.status) == (rp.iterations, rp.status)
+        np.testing.assert_allclose(rj.final_cost, rp.final_cost, rtol=1e-12)
     # the configs carry the JAX package's fields and defaults
     for name in ("GaussNewtonConfig", "DogLegConfig"):
         jcfg, tcfg = getattr(jax_apx, name)(), getattr(apx, name)()

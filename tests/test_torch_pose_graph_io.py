@@ -12,6 +12,7 @@ from apex_tpu.io import load_toro as jax_load_toro
 from apex_tpu.io import synthetic as jax_synthetic
 from apex_tpu_torch.io import Graph, load_g2o, load_toro, save_g2o, save_toro, synthetic
 from apex_tpu_torch.io.graph import full_to_upper_tri, upper_tri_to_full
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures"
 

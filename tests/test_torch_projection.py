@@ -12,6 +12,7 @@ from apex_tpu.ba import build_ba_problem as jax_build
 from apex_tpu.io import synthetic as jax_synthetic
 from apex_tpu_torch.ba import build_ba_problem
 from apex_tpu_torch.io import synthetic
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 
 DATASETS = {

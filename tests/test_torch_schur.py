@@ -21,6 +21,7 @@ from apex_tpu_torch.ba import build_ba_problem
 from apex_tpu_torch.convert import values_from_jax, values_to_numpy
 from apex_tpu_torch.io import synthetic
 from apex_tpu_torch.linalg.schur import SchurContext
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 EXACT = dict(variant="iterative", pcg_forcing=False, pcg_tolerance=1e-10,
              pcg_max_iterations=500)

@@ -26,6 +26,7 @@ from apex_tpu_torch.ba import build_ba_problem
 from apex_tpu_torch.convert import values_from_jax
 from apex_tpu_torch.io import synthetic
 from apex_tpu_torch.linalg.schur import SchurContext, enumerate_pairs, landmark_inverse
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 DAMPING = 0.1
 EXPLICIT_NAMES = ["schur_explicit", "sparse_schur_complement", "sparse_schur", "schur",

@@ -27,6 +27,7 @@ from apex_tpu.io import synthetic as jax_synthetic
 from apex_tpu_torch.ba import build_ba_problem
 from apex_tpu_torch.convert import values_from_jax
 from apex_tpu_torch.io import synthetic
+from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures"
 # tests/test_medium_fixture.py: certified f64 optimum
