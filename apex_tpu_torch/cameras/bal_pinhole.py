@@ -8,9 +8,10 @@ down -Z, no principal point:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .base import CameraModel
+from .base import CameraModel, host_array, unit
 
 
 class BALPinholeCamera(CameraModel):
@@ -65,3 +66,23 @@ class BALPinholeCamera(CameraModel):
             dim=-2,
         )  # (..., 2, 3)
         return J_point, J_intr
+
+    def unproject(self, intr, uv):
+        """The undistorted inverse: 8 fixed-point steps on (k1, k2)."""
+        f, k1, k2 = intr[..., 0], intr[..., 1], intr[..., 2]
+        xd = uv[..., 0] / f
+        yd = uv[..., 1] / f
+        xn, yn = xd, yd
+        for _ in range(8):
+            r2 = xn * xn + yn * yn
+            d = 1.0 + r2 * (k1 + k2 * r2)
+            xn = xd / d
+            yn = yd / d
+        return unit(torch.stack([xn, yn, -torch.ones_like(xn)], dim=-1))
+
+    def validate_params(self, intr) -> None:
+        intr = host_array(intr)
+        if intr.shape[-1] != 3:
+            raise ValueError(f"BAL pinhole expects 3 intrinsics [f,k1,k2], got {intr.shape}")
+        if np.any(intr[..., 0] <= 0) or not np.all(np.isfinite(intr)):
+            raise ValueError("BAL pinhole focal length must be positive and finite")

@@ -1,11 +1,11 @@
 """Factors of the port: the projection factor of bundle adjustment, the
-between factor of pose graphs and the two prior factors. Autodiff factors
-are ROADMAP A.7."""
+between factor of pose graphs, the two prior factors and the base of
+custom factors with autodiff Jacobians."""
 
-from .base import Factor
+from .base import AutoDiffFactor, Factor
 from .between import BetweenFactor
 from .prior import ManifoldPriorFactor, PriorFactor
 from .projection import OPTIMIZE_MODES, ProjectionFactor
 
-__all__ = ["Factor", "BetweenFactor", "ManifoldPriorFactor", "PriorFactor",
+__all__ = ["Factor", "AutoDiffFactor", "BetweenFactor", "ManifoldPriorFactor", "PriorFactor",
            "ProjectionFactor", "OPTIMIZE_MODES"]

@@ -13,6 +13,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..cameras import CameraModel
 from ..cameras import get as get_camera
@@ -112,7 +113,8 @@ class ProjectionFactor(Factor):
 
             R = quat_to_mat(pose[..., 3:])
             p_cam = torch.einsum("...ij,...j->...i", R, p_w) + pose[..., :3]
-            uv, valid = camera.project(intr, p_cam)
+            with record_function("camera.project"):
+                uv, valid = camera.project(intr, p_cam)
             # Overflow guard on top of cheirality: a trial step that sweeps a
             # landmark past a camera's focal plane gives |uv| ~ 1/z -> inf,
             # and in f32 one squared residual then NaNs the whole cost. Mask
@@ -124,7 +126,8 @@ class ProjectionFactor(Factor):
             if not compute_jacobian:
                 return r, None
 
-            J_pc, J_intr = camera.jacobians(intr, p_cam)
+            with record_function("camera.jacobians"):
+                J_pc, J_intr = camera.jacobians(intr, p_cam)
             vm = ok[..., None, None]
 
             def mask(j):

@@ -11,9 +11,11 @@ derived operations are written once from the group primitives:
     J_{Log(g)}_g = Jr⁻¹(Log(g)),  J_{Exp(t)}_t = Jr(t)
     between(a, b) = a⁻¹∘b;  J_a = -Ad((a⁻¹b)⁻¹),  J_b = I
 
-SO2, SE2, SO3 and SE3 have their adjoint and tangent Jacobians in closed
-form, R^n identities; the autodiff fallbacks for the other groups are
-ROADMAP A.7.
+SO2, SE2, SO3, SE3 and SE23 have their adjoint and tangent Jacobians in
+closed form, R^n identities. Sim3 and SGal3 take theirs from
+``with_autodiff_jacobians``: exact forward-mode autodiff of the group's own
+exp / log / compose (``torch.func.jacfwd`` under ``torch.func.vmap``), not
+finite differences.
 """
 
 from __future__ import annotations
@@ -45,9 +47,21 @@ class LieGroup:
     rjac_inv: Optional[Callable] = None
     ljac_inv: Optional[Callable] = None
 
+    hat: Optional[Callable] = None  # (..., D) -> matrix Lie algebra element
+    # (generator, batch=(), dtype, device) -> (*batch, S), drawn on the
+    # generator's device
+    random: Optional[Callable] = None
+    is_valid: Optional[Callable] = None  # (..., S), tol -> bool (...,)
+    interpolate: Optional[Callable] = None  # (x, y, alpha) -> (..., S)
+
     def plus(self, x, t):
         """Right plus: x ∘ Exp(t)."""
         return self.compose(x, self.exp(t))
+
+    def plus_j(self, x, t):
+        """J_x = Ad(Exp(t)⁻¹), J_t = Jr(t)."""
+        e = self.exp(t)
+        return self.compose(x, e), self.adjoint(self.inverse(e)), self.rjac(t)
 
     def inverse_j(self, x):
         """g⁻¹ with J = -Ad(g)."""
@@ -83,7 +97,76 @@ class LieGroup:
         d = self.minus(x, y)
         return d, self.rjac_inv(d), -self.ljac_inv(d)
 
+    def random_batch(self, generator, n, dtype=torch.float64, device=None):
+        """``n`` random elements (n, S) from ``generator`` (the JAX
+        package draws them from split keys: same laws, other values)."""
+        return self.random(generator, (n,), dtype=dtype, device=device)
+
+    def identity_like(self, batch_shape=(), dtype=torch.float64, device=None):
+        e = self.identity(dtype=dtype, device=device)
+        return e.expand(tuple(batch_shape) + e.shape)
+
 
 def _batched_eye(d, like):
     eye = torch.eye(d, dtype=like.dtype, device=like.device)
     return eye.expand(like.shape[:-1] + (d, d))
+
+
+def with_autodiff_jacobians(g: LieGroup) -> LieGroup:
+    """Fill in missing tangent Jacobians by exact forward-mode autodiff:
+
+        Jr(t) = d/dd Log(Exp(t)⁻¹ ∘ Exp(t + d)) at d = 0
+        Jl(t) = d/dd Log(Exp(t + d) ∘ Exp(t)⁻¹) at d = 0
+
+    and Jr⁻¹ / Jl⁻¹ as the inverses of those."""
+    updates = {}
+    if g.rjac is None:
+        updates["rjac"] = _jac_over_batch(g, mode="r")
+    if g.ljac is None:
+        updates["ljac"] = _jac_over_batch(g, mode="l")
+    if g.rjac_inv is None:
+        updates["rjac_inv"] = _inv_of(updates.get("rjac", g.rjac))
+    if g.ljac_inv is None:
+        updates["ljac_inv"] = _inv_of(updates.get("ljac", g.ljac))
+    return dataclasses.replace(g, **updates) if updates else g
+
+
+def vmap_rows(single, *xs, out_shape):
+    """``single`` mapped over the rows of ``xs`` flattened to (-1, last):
+    (..., *out_shape), with the leading dimensions of ``xs[0]``."""
+    lead = xs[0].shape[:-1]
+    flat = [x.reshape(-1, x.shape[-1]) for x in xs]
+    if flat[0].shape[0] == 0:
+        out = torch.zeros((0,) + tuple(out_shape), dtype=xs[0].dtype, device=xs[0].device)
+    else:
+        out = torch.func.vmap(single)(*flat)
+    return out.reshape(lead + tuple(out_shape))
+
+
+def _jac_over_batch(g: LieGroup, mode: str):
+    # each row keeps a batch dimension of 1 (``t[None]``): under forward-mode
+    # autodiff a python number times a 0-dim tensor (a tangent's scalar
+    # part) gets a float64 tangent, which an f32 solve cannot take
+    def single(t):
+        t = t[None]
+        if mode == "r":
+            def f(d):
+                return g.log(g.compose(g.inverse(g.exp(t)), g.exp(t + d)))[0]
+        else:
+            def f(d):
+                return g.log(g.compose(g.exp(t + d), g.inverse(g.exp(t))))[0]
+        return torch.func.jacfwd(f)(torch.zeros_like(t))[:, 0]
+
+    def batched(t):
+        return vmap_rows(single, t, out_shape=(t.shape[-1], t.shape[-1]))
+
+    return batched
+
+
+def _inv_of(jac_fn):
+    """The inverse of ``jac_fn``'s matrices. ``inv_ex`` reads no status
+    back to the host, so a CUDA graph can capture it."""
+    def inv(t):
+        return torch.linalg.inv_ex(jac_fn(t))[0]
+
+    return inv

@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from .base import LieGroup
-from .utils import small_angle_threshold, wrap_angle
+from .utils import rand_uniform, randn, small_angle_threshold, wrap_angle
 
 DOF = 3
 STORAGE_DIM = 3
@@ -137,6 +137,27 @@ def ljac_inv(tau):
     return _inv3(ljac(tau))
 
 
+def hat(tau):
+    rx, ry, theta = tau[..., 0], tau[..., 1], tau[..., 2]
+    z = torch.zeros_like(theta)
+    return _mat3([[z, -theta, rx], [theta, z, ry], [z, z, z]])
+
+
+def random(generator, batch=(), dtype=torch.float64, device=None):
+    batch = tuple(batch)
+    return torch.cat([randn(generator, batch + (2,), dtype, device),
+                      rand_uniform(generator, batch + (1,), -torch.pi, torch.pi, dtype, device)],
+                     dim=-1)
+
+
+def is_valid(x, tol=1e-6):
+    return torch.all(torch.isfinite(x), dim=-1)
+
+
+def interpolate(a, b, alpha):
+    return compose(a, exp(alpha * log(compose(inverse(a), b))))
+
+
 SE2 = LieGroup(
     name="SE2",
     dof=DOF,
@@ -153,4 +174,8 @@ SE2 = LieGroup(
     ljac=ljac,
     rjac_inv=rjac_inv,
     ljac_inv=ljac_inv,
+    hat=hat,
+    random=random,
+    is_valid=is_valid,
+    interpolate=interpolate,
 )

@@ -8,6 +8,7 @@ import torch
 from . import so3
 from .base import LieGroup
 from .utils import (
+    mat_to_quat,
     q_coeff_1,
     q_coeff_2,
     q_coeff_3,
@@ -15,6 +16,7 @@ from .utils import (
     quat_mul,
     quat_rotate,
     quat_to_mat,
+    randn,
     skew,
 )
 
@@ -125,8 +127,51 @@ def act(x, v):
     return quat_rotate(_q(x), v) + _t(x)
 
 
+def act_j(x, v):
+    """p' = R v + t; J_x = [R | -R [v]x] (right perturbation, [rho, theta]),
+    J_v = R."""
+    R = quat_to_mat(_q(x))
+    p = (R @ v[..., None])[..., 0] + _t(x)
+    return p, torch.cat([R, -(R @ skew(v))], dim=-1), R
+
+
 def normalize(x):
     return _pack(_t(x), so3.normalize(_q(x)))
+
+
+def hat(tau):
+    """4x4 se(3) matrix [[theta^, rho], [0, 0]]."""
+    rho, theta = tau[..., :3], tau[..., 3:]
+    top = torch.cat([skew(theta), rho[..., None]], dim=-1)
+    bot = torch.zeros(top.shape[:-2] + (1, 4), dtype=tau.dtype, device=tau.device)
+    return torch.cat([top, bot], dim=-2)
+
+
+def random(generator, batch=(), dtype=torch.float64, device=None):
+    batch = tuple(batch)
+    return _pack(randn(generator, batch + (3,), dtype, device),
+                 so3.random(generator, batch, dtype, device))
+
+
+def is_valid(x, tol=1e-6):
+    return so3.is_valid(_q(x), tol) & torch.all(torch.isfinite(_t(x)), dim=-1)
+
+
+def interpolate(a, b, alpha):
+    d = log(compose(inverse(a), b))
+    return compose(a, exp(alpha * d))
+
+
+def from_matrix(T):
+    return _pack(T[..., :3, 3], mat_to_quat(T[..., :3, :3]))
+
+
+def to_matrix(x):
+    R = quat_to_mat(_q(x))
+    top = torch.cat([R, _t(x)[..., None]], dim=-1)
+    bot = torch.zeros(top.shape[:-2] + (1, 4), dtype=x.dtype, device=x.device)
+    bot[..., 0, 3] = 1.0
+    return torch.cat([top, bot], dim=-2)
 
 
 SE3 = LieGroup(
@@ -145,4 +190,8 @@ SE3 = LieGroup(
     ljac=ljac,
     rjac_inv=rjac_inv,
     ljac_inv=ljac_inv,
+    hat=hat,
+    random=random,
+    is_valid=is_valid,
+    interpolate=interpolate,
 )

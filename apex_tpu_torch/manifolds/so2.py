@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from .base import LieGroup
-from .utils import wrap_angle
+from .utils import rand_uniform, wrap_angle
 
 DOF = 1
 STORAGE_DIM = 1
@@ -37,6 +37,24 @@ def act(x, v):
     return torch.stack([c * vx - s * vy, s * vx + c * vy], dim=-1)
 
 
+def hat(theta):
+    t = theta[..., 0]
+    z = torch.zeros_like(t)
+    return torch.stack([torch.stack([z, -t], dim=-1), torch.stack([t, z], dim=-1)], dim=-2)
+
+
+def random(generator, batch=(), dtype=torch.float64, device=None):
+    return rand_uniform(generator, tuple(batch) + (1,), -torch.pi, torch.pi, dtype, device)
+
+
+def is_valid(x, tol=1e-6):
+    return torch.all(torch.isfinite(x), dim=-1)
+
+
+def interpolate(a, b, alpha):
+    return compose(a, wrap_angle(alpha * wrap_angle(compose(inverse(a), b))))
+
+
 SO2 = LieGroup(
     name="SO2",
     dof=DOF,
@@ -53,4 +71,8 @@ SO2 = LieGroup(
     ljac=_ones,
     rjac_inv=_ones,
     ljac_inv=_ones,
+    hat=hat,
+    random=random,
+    is_valid=is_valid,
+    interpolate=interpolate,
 )

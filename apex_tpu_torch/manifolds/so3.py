@@ -14,6 +14,7 @@ from .utils import (
     quat_normalize,
     quat_rotate,
     quat_to_mat,
+    randn,
     sinc3_c,
     small_angle_threshold,
     skew,
@@ -64,8 +65,18 @@ def log(q):
     return k[..., None] * v
 
 
+def to_matrix(q):
+    return quat_to_mat(q)
+
+
 def act(q, v):
     return quat_rotate(q, v)
+
+
+def act_j(q, v):
+    """p' = R v; J_q (right perturbation) = -R [v]x, J_v = R."""
+    R = quat_to_mat(q)
+    return (R @ v[..., None])[..., 0], -(R @ skew(v)), R
 
 
 def _skew_terms(theta):
@@ -108,6 +119,25 @@ def normalize(q):
     return torch.where(q[..., :1] < 0, -q, q)
 
 
+def hat(theta):
+    return skew(theta)
+
+
+def random(generator, batch=(), dtype=torch.float64, device=None):
+    """A uniform random rotation: a normalized Gaussian quaternion."""
+    return normalize(randn(generator, tuple(batch) + (4,), dtype, device))
+
+
+def is_valid(q, tol=1e-6):
+    return torch.abs(torch.sum(q * q, dim=-1) - 1.0) < tol
+
+
+def interpolate(q1, q2, alpha):
+    """Geodesic slerp: q1 ⊞ (alpha (q2 ⊟ q1))."""
+    d = log(compose(inverse(q1), q2))
+    return compose(q1, exp(alpha * d))
+
+
 SO3 = LieGroup(
     name="SO3",
     dof=DOF,
@@ -124,4 +154,8 @@ SO3 = LieGroup(
     ljac=ljac,
     rjac_inv=rjac_inv,
     ljac_inv=ljac_inv,
+    hat=hat,
+    random=random,
+    is_valid=is_valid,
+    interpolate=interpolate,
 )

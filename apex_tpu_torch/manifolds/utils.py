@@ -84,6 +84,20 @@ def quat_rotate(q, v):
     return v + w * t + torch.linalg.cross(qv, t, dim=-1)
 
 
+def randn(generator, shape, dtype=torch.float64, device=None):
+    """Standard normal draws from ``generator`` (on its device), moved to
+    ``device``."""
+    x = torch.randn(tuple(shape), generator=generator, dtype=dtype, device=generator.device)
+    return x if device is None else x.to(device)
+
+
+def rand_uniform(generator, shape, low, high, dtype=torch.float64, device=None):
+    """Uniform draws on [low, high) from ``generator``, moved to ``device``."""
+    x = torch.rand(tuple(shape), generator=generator, dtype=dtype, device=generator.device)
+    x = low + (high - low) * x
+    return x if device is None else x.to(device)
+
+
 def mat_to_quat(R):
     """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4), w >= 0.
 

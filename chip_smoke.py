@@ -2,8 +2,9 @@
 """Drive the PyTorch port's bundle-adjustment paths (implicit and explicit
 Schur) and pose-graph paths (SE3, SE2, the robust-loss sweep with a prior,
 the dense solvers, Gauss-Newton and DogLeg, sparse_qr, pcg, covariances,
-the general-sparsity tier) once on one CUDA card, in python mode and in
-``mode="jit"`` (replayed CUDA graphs; phases 19-24).
+the general-sparsity tier), lens self-calibration through the 8 camera
+models, and pose graphs on the extended Lie groups once on one CUDA card,
+in python mode and in ``mode="jit"`` (replayed CUDA graphs; phases 19-28).
 
 Run from the repository root: ``python3 chip_smoke.py``. Phases, in order,
 each printing one JSON line; any failure raises and exits non-zero:
@@ -120,13 +121,36 @@ each printing one JSON line; any failure raises and exits non-zero:
     device time against the timed solve's wall time), device events per LM
     iteration, peak memory and the graph memory kept reserved; in the BA
     phases the landmark kernel runs at least once per LM iteration inside
-    the replayed graphs, counted by name in the profile.
+    the replayed graphs, counted by name in the profile;
+25. camera parity: tests/test_camera_selfcal.py's scene and problem (6
+    cameras, 120 points, one shared intrinsics variable, ``HuberLoss(2.0)``)
+    for its 7 models through ``schur_implicit`` with its config, f64, python
+    and jit mode on the card against the CPU (same iterations and status,
+    rtol 1e-8, focal within 1%), and DogLeg with covariances (pinhole);
+26. camera full: a 257-camera, 65,132-point, 225,903-observation ring
+    (``selfcal_ring``: bench's trafalgar rung's shape, every point seen by
+    3 or 4 cameras from around the ring) with one intrinsics
+    variable per camera refined as COLMAP's bundle adjuster does by
+    default (``RING_FIXED``: the principal point held), for the pinhole and
+    the 7 extended models (the extended ones with autodiff Jacobians),
+    through ``schur`` (explicit) and ``schur_implicit``, up to 20 LM
+    iterations, jit beside python mode in f64, Kannala-Brandt in f32 too:
+    RMSE below 0.55x, jit equal to python mode (iterations, status, and
+    rtol 1e-7 explicit, 1e-10 implicit, or 10x python mode's spread), the
+    landmark kernel once per LM iteration and in the jit profile;
+    prints s per LM iteration, the idle share and the camera spans' share
+    of the device time;
+27. lie full: Sim3 and SE23 pose graphs on sphere2500's edges
+    (``lifted_sphere``) through LM ``sparse_cholesky``, f64, as phase 20;
+28. lie small: tests/test_extended_manifolds_e2e.py's SGal3 chain and the
+    Rosenbrock ``AutoDiffFactor`` (LM, GN, DogLeg), python and jit mode on
+    the card against the CPU.
 
 The pose-graph paths launch no kernel of the port's own (the TPU reference
 ran them in XLA, outside Pallas): the landmark-block kernel, the one hand
-kernel, runs on the BA paths only. Then the kernel summary line (the
-python-mode and the jit launches on the main paths, each per LM
-iteration), and last
+kernel, runs on the BA paths only (the BAL and the self-calibration ones).
+Then the kernel summary line (the python-mode and camera launches, the jit
+BA launches, each per LM iteration), and last
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without one.
 """
@@ -376,7 +400,7 @@ PROFILE_SPANS = ("banded.linearize", "banded.assemble", "cr.eliminate", "cr.dens
                  "schur.assemble", "schur.pair_products", "schur.dense_solve",
                  "schur.back_substitute", "general.assemble", "general.eliminate",
                  "general.core", "general.back_substitute", "general.retry",
-                 "dogleg.assemble", "dogleg.solve")
+                 "dogleg.assemble", "dogleg.solve", "camera.project", "camera.jacobians")
 
 
 def phase_pose_graph_parity():
@@ -1522,11 +1546,609 @@ def phase_jit_ba(ds, problem):
     return total, iterations
 
 
+# -- slice 9: the camera models, the extended groups and autodiff factors ------
+
+# tests/test_camera_selfcal.py's models and true intrinsics, and the f-theta
+# camera of tests/test_cameras.py (no focal: [cx, cy, k1, k2, k3, k4])
+SELFCAL_MODELS = {
+    "pinhole": [450.0, 455.0, 320.0, 240.0],
+    "rad_tan": [450.0, 455.0, 320.0, 240.0, -0.2, 0.05, 1e-4, -1e-4, 0.0],
+    "kannala_brandt": [380.0, 379.0, 318.0, 242.0, 0.01, -0.002, 1e-3, -2e-4],
+    "fov": [350.0, 350.0, 320.0, 240.0, 0.8],
+    "ucm": [460.0, 460.0, 320.0, 240.0, 0.55],
+    "eucm": [460.0, 460.0, 320.0, 240.0, 0.55, 1.05],
+    "double_sphere": [350.0, 350.0, 320.0, 240.0, -0.15, 0.57],
+}
+FTHETA = [320.0, 240.0, 300.0, 5.0, -2.0, 0.3]
+# tests/test_camera_selfcal.py's LM config
+SELFCAL_LM = dict(linear_solver_type="schur_implicit", max_iterations=60, pcg_tolerance=1e-8,
+                  pcg_max_iterations=400)
+SELFCAL_SLOTS = ("pose", "landmark", "intrinsics")
+CAMERA_SPANS = ("camera.project", "camera.jacobians")
+# The intrinsics each camera of ``camera_full`` holds, as COLMAP's bundle
+# adjuster refines a camera by default (ba_refine_principal_point false):
+# the principal point, RadTan's k3 (COLMAP's OPENCV model has none), and
+# EUCM's (alpha, beta) and Double Sphere's (xi, alpha), which a view of 35
+# degrees off axis cannot tell from the focal length (Double Sphere's are
+# held at the JAX test's size too). With them free, EUCM's solves stall, and
+# two implicit solves that differ only in the order of their sums
+# (index_add_'s atomics) end far apart.
+RING_FIXED = {"pinhole": [2, 3], "rad_tan": [2, 3, 8], "kannala_brandt": [2, 3], "fov": [2, 3],
+              "ucm": [2, 3], "eucm": [2, 3, 4, 5], "double_sphere": [2, 3, 4, 5],
+              "ftheta": [0, 1]}
+
+
+def selfcal_scene(n_cams=6, n_pts=120, seed=0):
+    """tests/test_camera_selfcal.py's ``make_scene`` through the port: a
+    wall of points at z in [3.5, 4.5], cameras on a small arc looking down
+    +Z. (poses [C, 7] world-to-camera, points [P, 3])."""
+    import numpy as np
+    import torch
+
+    from apex_tpu_torch.manifolds import so3
+    from apex_tpu_torch.manifolds.utils import mat_to_quat, quat_to_mat
+
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-2, 2, n_pts), rng.uniform(-1.5, 1.5, n_pts),
+                    rng.uniform(3.5, 4.5, n_pts)], axis=1)
+    poses = []
+    for i in range(n_cams):
+        c = np.array([0.6 * np.sin(i), 0.4 * np.cos(i), -0.3 + 0.1 * i])
+        tilt = torch.tensor([0.05 * np.cos(i), 0.08 * np.sin(2 * i), 0.0], dtype=torch.float64)
+        Rcw = quat_to_mat(so3.exp(tilt)).numpy()
+        q = mat_to_quat(torch.from_numpy(Rcw)).numpy()
+        poses.append(np.concatenate([-Rcw @ c, q]))
+    return np.stack(poses), pts
+
+
+def selfcal_ring(n_cams=257, n_pts=65_132, per_camera=879, seed=0):
+    """A full-width self-calibration scene shaped as bench's trafalgar rung
+    (``synthetic_ba_large``): ``n_pts`` points uniform in [-2, 2]^3 and
+    ``n_cams`` cameras on a ring of radius 6 (height 0.25 sin 3a) looking
+    at its centre, +Z forward, so that every point lies within 35 degrees
+    of every camera's axis. Each point is seen by 3 or 4 cameras drawn at
+    random from around the ring (``n_cams * per_camera`` observations,
+    exactly ``per_camera`` per camera): camera slots shuffled against point
+    slots, a camera drawn twice for one point swapped away. (poses [C, 7]
+    world-to-camera, points [P, 3], camera index, point index), sorted by
+    camera."""
+    import numpy as np
+    import torch
+
+    from apex_tpu_torch.manifolds.utils import mat_to_quat
+
+    rng = np.random.default_rng(seed)
+    C, P, N = n_cams, n_pts, n_cams * per_camera
+    if not 2 * P <= N <= 4 * P:
+        raise ValueError(f"{N} observations for {P} points")
+    pts = rng.uniform(-2.0, 2.0, (P, 3))
+    views = np.full(P, N // P)
+    views[rng.permutation(P)[:N % P]] += 1
+    pt_idx = np.repeat(np.arange(P), views)
+    cam_idx = rng.permutation(np.repeat(np.arange(C), per_camera))
+    while True:
+        # a point's slots are adjacent: a camera drawn twice sits twice in a run
+        order = np.lexsort((cam_idx, pt_idx))
+        c, q = cam_idx[order], pt_idx[order]
+        dup = order[1:][(c[1:] == c[:-1]) & (q[1:] == q[:-1])]
+        if not len(dup):
+            break
+        for i, j in zip(dup, rng.integers(0, N, len(dup))):
+            cam_idx[i], cam_idx[j] = cam_idx[j], cam_idx[i]
+    a = 2 * np.pi * np.arange(C) / C
+    centres = 6.0 * np.stack([np.cos(a), np.sin(a), 0.25 * np.sin(3 * a)], axis=1)
+    fwd = -centres / np.linalg.norm(centres, axis=1, keepdims=True)
+    right = np.cross(fwd, np.array([0.0, 0.0, 1.0]))
+    right /= np.linalg.norm(right, axis=1, keepdims=True)
+    down = np.cross(fwd, right)
+    Rcw = np.stack([right, down, fwd], axis=1)  # rows: the camera's x, y, z in the world
+    q = mat_to_quat(torch.from_numpy(Rcw)).numpy()
+    poses = np.concatenate([-np.einsum("cij,cj->ci", Rcw, centres), q], axis=1)
+    order = np.lexsort((pt_idx, cam_idx))
+    return poses, pts, cam_idx[order], pt_idx[order]
+
+
+def selfcal_arrays(model, intr_true, poses, pts, pairs=None, shared=True, seed=1,
+                   pixel_noise=0.3):
+    """The arrays of tests/test_camera_selfcal.py's ``build_problem``
+    (self-calibration) through the port: observations projected through the
+    true intrinsics plus ``pixel_noise``; poses, points and focal lengths
+    perturbed. ``pairs`` (camera index, point index) are the observations
+    (None: every valid projection within 400 px of the principal point, as
+    the test selects); ``shared``: one intrinsics row for all views, else
+    one per camera. dict(cam_idx, pt_idx, obs, poses0, pts0, intr0)."""
+    import numpy as np
+    import torch
+
+    from apex_tpu_torch import cameras
+    from apex_tpu_torch.manifolds import SE3
+
+    cam = cameras.get(model)
+    intr_true = np.asarray(intr_true, dtype=np.float64)
+    rng = np.random.default_rng(seed)
+    C, P = poses.shape[0], pts.shape[0]
+    if pairs is None:
+        cam_idx, pt_idx = (a.reshape(-1) for a in np.meshgrid(np.arange(C), np.arange(P),
+                                                              indexing="ij"))
+    else:
+        cam_idx, pt_idx = pairs
+    p_cam = SE3.act(torch.from_numpy(poses[cam_idx]), torch.from_numpy(pts[pt_idx]))
+    uv, valid = cam.project(torch.from_numpy(intr_true)[None], p_cam)
+    uv, valid = uv.numpy(), valid.numpy()
+    centre = intr_true[0 if model == "ftheta" else 2]
+    keep = valid & (np.abs(uv[:, 0] - centre) < 400)
+    if pairs is not None and not keep.all():
+        raise AssertionError(f"{model}: {int((~keep).sum())} observations outside the view")
+    cam_idx, pt_idx, uv = cam_idx[keep], pt_idx[keep], uv[keep]
+    obs = uv + rng.normal(0, pixel_noise, uv.shape)
+    poses0 = SE3.plus(torch.from_numpy(poses), torch.from_numpy(
+        rng.normal(0, 0.01, (C, 6)))).numpy()
+    pts0 = pts + rng.normal(0, 0.02, pts.shape)
+    intr0 = np.tile(intr_true, (C, 1))
+    intr0[:, :2] *= 1.0 + rng.normal(0, 0.02, (C, 2))
+    return dict(cam_idx=cam_idx, pt_idx=pt_idx, obs=obs, poses0=poses0, pts0=pts0,
+                intr0=intr0[:1] if shared else intr0)
+
+
+def selfcal_problem(model, intr_true, poses, pts, pairs=None, shared=True, seed=1,
+                    pixel_noise=0.3, fixed=None):
+    """tests/test_camera_selfcal.py's ``build_problem`` (self-calibration)
+    through the port, from ``selfcal_arrays``: every view one
+    ``ProjectionFactor`` with ``HuberLoss(2.0)``; one intrinsics variable
+    (``intr_shared``), or one per camera (``intr_NNNN``) where not
+    ``shared``; ``fixed``: the indices of every intrinsics variable held
+    (None: the test's, Double Sphere's distortion); the first pose fixed,
+    and the second pose's x for the scale. (problem, observations)."""
+    import apex_tpu_torch as apx
+    from apex_tpu_torch import cameras
+    from apex_tpu_torch.factors.projection import ProjectionFactor
+
+    arrays = selfcal_arrays(model, intr_true, poses, pts, pairs, shared, seed, pixel_noise)
+    problem = build_selfcal(apx, ProjectionFactor.template(cameras.get(model), SELFCAL_SLOTS),
+                            arrays, model, fixed)
+    return problem, len(arrays["obs"])
+
+
+def build_selfcal(pkg, template, arrays, model, fixed=None):
+    """A self-calibration problem of package ``pkg`` (its ``Problem`` and
+    ``HuberLoss``) from ``selfcal_arrays``' output, each view a block of
+    ``template``; ``fixed`` as in ``selfcal_problem``."""
+    cam_idx, pt_idx, intr0 = arrays["cam_idx"], arrays["pt_idx"], arrays["intr0"]
+    C, P = arrays["poses0"].shape[0], arrays["pts0"].shape[0]
+    problem = pkg.Problem()
+    pose_names = [f"pose_{i:03d}" for i in range(C)]
+    pt_names = [f"pt_{j:04d}" for j in range(P)]
+    shared = intr0.shape[0] == 1
+    intr_names = ["intr_shared"] if shared else [f"intr_{i:04d}" for i in range(C)]
+    problem.add_variables_batch(pose_names, "SE3", arrays["poses0"])
+    problem.add_variables_batch(pt_names, "R3", arrays["pts0"])
+    problem.add_variables_batch(intr_names, f"R{intr0.shape[1]}", intr0)
+    intr_of = [0] * len(cam_idx) if shared else cam_idx
+    slot_keys = [[pose_names[i] for i in cam_idx], [pt_names[j] for j in pt_idx],
+                 [intr_names[i] for i in intr_of]]
+    if fixed is None and model == "double_sphere":
+        # (f, xi, alpha) are degenerate on a narrow view: distortion fixed
+        fixed = [4, 5]
+    if fixed:
+        for name in intr_names:
+            problem.fix_variable(name, indices=fixed)
+    problem.add_residual_block_batch(slot_keys, template, {"obs": arrays["obs"]},
+                                     loss=pkg.HuberLoss(2.0))
+    problem.fix_variable(pose_names[0])
+    problem.fix_variable(pose_names[1], indices=[0])
+    return problem
+
+
+def phase_camera_parity():
+    """tests/test_camera_selfcal.py's scene and problem (6 cameras, 120
+    points, one shared intrinsics variable) for each of its 7 models,
+    through ``schur_implicit`` with its config in f64, python and jit mode
+    on the card against python mode on the CPU: the same iterations and
+    status, final cost within rtol 1e-8, the focal within 1% of the truth;
+    then DogLeg with covariances on the pinhole scene, card against CPU
+    (covariance of the intrinsics within rtol 1e-6 of its largest entry)."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+
+    poses, pts = selfcal_scene()
+    for model, intr in SELFCAL_MODELS.items():
+        problem, n_obs = selfcal_problem(model, intr, poses, pts)
+        res = {}
+        for key, device, mode in (("cpu", "cpu", "python"), ("cuda", "cuda", "python"),
+                                  ("cuda_jit", "cuda", "jit")):
+            res[key] = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+                mode=mode, **SELFCAL_LM)).optimize(
+                problem.compile(dtype=torch.float64, device=device))
+        rh = res["cpu"]
+        emit(dict(phase="camera_parity", model=model, observations=n_obs,
+                  iterations=rh.iterations, status=rh.status.name,
+                  **{f"cost_{k}": r.final_cost for k, r in res.items()},
+                  **{f"iterations_{k}": r.iterations for k, r in res.items()},
+                  focal=float(res["cuda"].variables["intr_shared"][0]), focal_true=intr[0]))
+        for key in ("cuda", "cuda_jit"):
+            rc = res[key]
+            if (rc.iterations, rc.status) != (rh.iterations, rh.status):
+                raise AssertionError(f"{model} {key} {rc.summary()} vs cpu {rh.summary()}")
+            np.testing.assert_allclose(rc.final_cost, rh.final_cost, rtol=1e-8,
+                                       err_msg=f"{model} {key}")
+            np.testing.assert_allclose(rc.variables["intr_shared"][0], intr[0], rtol=0.01,
+                                       err_msg=f"{model} {key} focal")
+    problem, _ = selfcal_problem("pinhole", SELFCAL_MODELS["pinhole"], poses, pts)
+    res = {device: apx.DogLeg(apx.DogLegConfig(max_iterations=40, compute_covariances=True))
+           .optimize(problem.compile(dtype=torch.float64, device=device))
+           for device in ("cuda", "cpu")}
+    rc, rh = res["cuda"], res["cpu"]
+    cov_c, cov_h = rc.covariances["intr_shared"], rh.covariances["intr_shared"]
+    emit(dict(phase="camera_parity", model="pinhole", optimizer="dogleg",
+              iterations=rc.iterations, status=rc.status.name, cost_cuda=rc.final_cost,
+              cost_cpu=rh.final_cost, covariance_diag_cuda=np.diag(cov_c).tolist(),
+              covariance_max_abs_diff=float(np.abs(cov_c - cov_h).max())))
+    if (rc.iterations, rc.status) != (rh.iterations, rh.status):
+        raise AssertionError(f"dogleg: cuda {rc.summary()} vs cpu {rh.summary()}")
+    np.testing.assert_allclose(rc.final_cost, rh.final_cost, rtol=1e-8)
+    np.testing.assert_allclose(cov_c, cov_h, rtol=1e-6, atol=1e-6 * np.abs(cov_h).max())
+
+
+def camera_solve(phase, label, problem, n_obs, solver, dtype, rtol):
+    """One (model, Schur variant, dtype) of ``camera_full``: two python-mode
+    solves (the second timed; their costs' spread is python mode's own
+    rounding, from ``index_add_``'s atomic order), then jit mode: the first
+    solve (warm-up and capture) and the timed one. f64 must give python
+    mode's iterations and status and its final cost within ``rtol`` (or 10x
+    python mode's spread). Every solve must bring the RMSE below 0.55x the
+    initial, and the landmark kernel must run at least once per LM
+    iteration. Profiles: for ``schur``, a python-mode solve (the camera
+    spans' share of the device time) and a jit solve; for
+    ``schur_implicit`` (thousands of device events per LM iteration, whose
+    trace takes the profiler long to read) a jit solve of its first 3 LM
+    iterations, captured by a solve before it. The landmark
+    kernel must appear in the jit profile once per LM iteration. Returns (kernel launches, LM
+    iterations) over its solves."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.ba import rmse
+
+    name = str(dtype).replace("torch.", "")
+    t0 = time.perf_counter()
+    cp = problem.compile(dtype=dtype, device="cuda")
+    compile_s = time.perf_counter() - t0
+
+    def make(mode, iterations=None):
+        cfg = apx.LevenbergMarquardtConfig.for_bundle_adjustment()
+        cfg.linear_solver_type = solver
+        cfg.max_iterations = iterations or cfg.max_iterations
+        cfg.mode = mode
+        return apx.LevenbergMarquardt(cfg)
+
+    def profiled_solve(lm):
+        before = graph_counters()
+        t0 = time.perf_counter()
+        out = profile_solve(lambda: lm.optimize(cp))
+        out["profile_seconds"] = time.perf_counter() - t0
+        return out, {k: v - before[k] for k, v in graph_counters().items()}
+
+    python, jit = make("python"), make("jit")
+    again, _, again_n = counted_solve(python, cp)
+    ref, python_s, python_n = counted_solve(python, cp)
+    spread = abs(again.final_cost - ref.final_cost) / abs(ref.final_cost)
+    counts = [again_n, python_n]
+    iterations = again.iterations + ref.iterations
+    camera = {}
+    if solver == "schur":
+        python_profile, n_profile = profiled_solve(python)
+        counts.append(n_profile)
+        iterations += python_profile["iterations"]
+        camera_ms = sum(python_profile["spans"].get(s, {}).get("device_ms", 0.0)
+                        for s in CAMERA_SPANS)
+        camera = dict(camera_device_ms=camera_ms,
+                      camera_share_of_device_time=camera_ms / 1e3
+                      / python_profile["device_busy_seconds"],
+                      python_device_idle_share=python_profile["device_idle_share"],
+                      landmark_kernel_events_python=python_profile["landmark_kernel_events"])
+    first, first_s, first_n = counted_solve(jit, cp)
+    torch.cuda.reset_peak_memory_stats()
+    res, seconds, n = counted_solve(jit, cp)
+    peak = torch.cuda.max_memory_allocated()
+    if solver == "schur":
+        short = jit
+    else:
+        # its own warm-up and capture first, outside the profile
+        short = make("jit", iterations=3)
+        warm, _, warm_n = counted_solve(short, cp)
+        counts.append(warm_n)
+        iterations += warm.iterations
+    profiled, profiled_n = profiled_solve(short)
+    counts += [first_n, n, profiled_n]
+    iterations += first.iterations + res.iterations + profiled["iterations"]
+    rtol = max(rtol, 10.0 * spread)
+    ctx = jit._jit_cache[cp]._step.solve_fn.schur_context
+    r0, r1 = rmse(res.initial_cost, n_obs), rmse(res.final_cost, n_obs)
+    line = dict(phase=phase, model=label, solver=solver, variant=ctx.variant, Dc=ctx.Dc,
+                dtype=name, observations=n_obs, status=res.status.name,
+                iterations=res.iterations, python_iterations=ref.iterations,
+                initial_cost=res.initial_cost, final_cost=res.final_cost,
+                python_final_cost=ref.final_cost,
+                rel_diff_to_python=abs(res.final_cost - ref.final_cost) / ref.final_cost,
+                python_run_to_run_spread=spread, parity_rtol=rtol, rmse_initial=r0,
+                rmse_final=r1, compile_seconds=compile_s, first_solve_seconds=first_s,
+                capture_seconds=jit._jit_cache[cp].capture_seconds, solve_seconds=seconds,
+                seconds_per_lm_iteration=seconds / res.iterations,
+                python_solve_seconds=python_s,
+                python_seconds_per_lm_iteration=python_s / ref.iterations,
+                speedup_over_python=python_s / seconds,
+                profiled_iterations=profiled["iterations"],
+                device_idle_share=profiled["device_idle_share"],
+                device_idle_share_timed=1.0 - (
+                    profiled["device_busy_seconds"] / profiled["iterations"]
+                    / (seconds / res.iterations)),
+                landmark_kernel_events_jit=profiled["landmark_kernel_events"],
+                host_reads_per_lm_iteration=n["host_reads"] / res.iterations,
+                device_events_per_lm_iteration=profiled["device_events_per_lm_iteration"],
+                top_device_ops_ms=profiled["top_device_ops_ms"][:6],
+                profile_seconds=profiled["profile_seconds"], max_memory_allocated=peak,
+                **camera)
+    emit(line)
+    for r in (again, ref, first, res):
+        if not (np.isfinite(r.final_cost) and rmse(r.final_cost, n_obs) < 0.55 * r0):
+            raise AssertionError(f"{label} {solver} {name}: RMSE {r0} -> "
+                                 f"{rmse(r.final_cost, n_obs)} misses the 0.55x gate")
+    if dtype == torch.float64:
+        if (res.iterations, res.status) != (ref.iterations, ref.status):
+            raise AssertionError(f"{label} {solver}: jit {res.summary()} vs python "
+                                 f"{ref.summary()}")
+        np.testing.assert_allclose(res.final_cost, ref.final_cost, rtol=rtol,
+                                   err_msg=f"{label} {solver} jit against python mode")
+    if profiled["landmark_kernel_events"] < profiled["iterations"]:
+        raise AssertionError(f"{label} {solver} {name}: {profiled['landmark_kernel_events']} "
+                             f"landmark kernel events for {profiled['iterations']} iterations")
+    if first_n["captures"] != 2 or n["captures"] or profiled_n["captures"]:
+        raise AssertionError(f"{label} {solver}: captures {first_n}, {n}, {profiled_n}")
+    launches = sum(c["replayed_kernel_launches"] + c["eager_kernel_launches"] for c in counts)
+    if launches < iterations:
+        raise AssertionError(f"{label} {solver} {name}: {launches} landmark kernel launches "
+                             f"for {iterations} LM iterations")
+    return launches, iterations
+
+
+def phase_camera_full():
+    """Self-calibration at full width: ``selfcal_ring``'s 257 cameras,
+    65,132 points and 225,903 observations (the trafalgar rung's counts),
+    one intrinsics variable per camera (the BAL convention: a camera entity
+    of 6 + K DOF) with ``RING_FIXED``'s entries held, for the pinhole and
+    the 7 extended models, through ``schur`` (the explicit variant:
+    Dc = 257 (6 + K) <= 3,855) and ``schur_implicit``, LM with the bundle
+    adjustment config (up to 20 iterations), jit mode in f64 beside python
+    mode; Kannala-Brandt in f32 as well. Returns (kernel launches, LM
+    iterations) over all its solves."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    poses, pts, cam_idx, pt_idx = selfcal_ring()
+    seen = np.bincount(pt_idx, minlength=pts.shape[0])
+    emit(dict(phase="camera_full_scene", cameras=poses.shape[0], points=pts.shape[0],
+              observations=len(pt_idx), views_per_point_min=int(seen.min()),
+              views_per_point_mean=float(seen.mean()), views_per_point_max=int(seen.max()),
+              seconds=time.perf_counter() - t0))
+    if seen.min() < 2:
+        raise AssertionError(f"a point is seen by {seen.min()} cameras")
+    launches = iterations = 0
+    models = dict(SELFCAL_MODELS, ftheta=FTHETA)
+    for model, intr in models.items():
+        t0 = time.perf_counter()
+        problem, n_obs = selfcal_problem(model, intr, poses, pts, pairs=(cam_idx, pt_idx),
+                                         shared=False, fixed=RING_FIXED[model])
+        build_s = time.perf_counter() - t0
+        dtypes = (torch.float64, torch.float32) if model == "kannala_brandt" else (
+            torch.float64,)
+        for dtype in dtypes:
+            # as phase_jit_ba: python mode's explicit solves spread by up to
+            # ~1e-8 (the Cholesky of S magnifies atomic-order rounding)
+            for solver, rtol in (("schur", 1e-7), ("schur_implicit", 1e-10)):
+                n, its = camera_solve("camera_full", model, problem, n_obs, solver, dtype, rtol)
+                launches += n
+                iterations += its
+        emit(dict(phase="camera_full_build", model=model, build_seconds=build_s))
+    return launches, iterations
+
+
+# tangent noise of the lifted sphere's measurements: translation 0.01,
+# rotation 0.002, and 0.001 on log s (Sim3) or 0.01 on the velocity (SE23)
+LIE_NOISE = {"Sim3": [0.01] * 3 + [0.002] * 3 + [0.001],
+             "SE23": [0.01] * 3 + [0.002] * 3 + [0.01] * 3}
+
+
+def lifted_sphere(group, n_poses=2500, rings=50, seed=0):
+    """sphere2500's graph (``synthetic_pose_graph_3d(2500, 50, seed=0)``'s
+    edges) on Sim3 or SE23: the truth is the graph's SE3 poses lifted with a
+    seeded scale drift (Sim3: log s a random walk, steps N(0, 0.002)) or
+    velocities (SE23: the next pose's position minus this one's); each
+    edge's measurement is the true relative element perturbed by a
+    tangent noise (``LIE_NOISE``), and the initial values integrate the odometry edges
+    from the first pose, as the SE3 graph's do. The first pose is fixed."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.io import synthetic
+    from apex_tpu_torch.manifolds import get
+
+    graph = synthetic.synthetic_pose_graph_3d(n_poses=n_poses, rings=rings, seed=0)
+    se3 = np.stack([graph.vertices_se3[i] for i in range(graph.num_vertices)])
+    n = se3.shape[0]
+    rng = np.random.default_rng(seed)
+    if group == "Sim3":
+        extra = np.exp(np.cumsum(rng.normal(0, 0.002, n)))[:, None]
+    else:
+        extra = np.diff(se3[:, :3], axis=0, append=se3[-1:, :3])
+    G = get(group)
+    truth = torch.from_numpy(np.concatenate([se3, extra], axis=1))
+    src = np.array([e.frm for e in graph.edges_se3])
+    dst = np.array([e.to for e in graph.edges_se3])
+    noise = rng.normal(size=(len(src), G.dof)) * np.asarray(LIE_NOISE[group])
+    meas = G.plus(G.between(truth[src], truth[dst]), torch.from_numpy(noise))
+    init = [truth[0]]
+    for k in range(n - 1):  # the odometry edges come first, k -> k + 1
+        init.append(G.compose(init[-1], meas[k]))
+    problem = apx.Problem()
+    names = [f"x{i}" for i in range(n)]
+    problem.add_variables_batch(names, group, torch.stack(init).numpy())
+    for k in range(len(src)):
+        problem.add_residual_block([names[src[k]], names[dst[k]]],
+                                   apx.BetweenFactor(group, meas[k].numpy()))
+    problem.fix_variable(names[0])
+    return problem
+
+
+def phase_lie_full():
+    """The extended groups at full width: Sim3 and SE23 pose graphs on
+    sphere2500's edges (``lifted_sphere``) through LM ``sparse_cholesky``
+    (the banded tier: 7- and 9-wide blocks), ``damping="auto"``,
+    ``cost_tolerance=1e-4``, f64, jit mode beside python mode: converged
+    with the cost reduced by more than 99%, and jit equal to python mode.
+    Prints the bandwidth and the panel."""
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.linalg import banded
+
+    def lm(mode):
+        return apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+            linear_solver_type="sparse_cholesky", damping="auto", mode=mode, **BENCH))
+
+    for group in ("Sim3", "SE23"):
+        t0 = time.perf_counter()
+        problem = lifted_sphere(group)
+        build_s = time.perf_counter() - t0
+        out = jit_full("lie_full", f"sphere2500 {group}", problem, lm, torch.float64,
+                       reduction(0.99))
+        W = banded.block_bandwidth(out["cp"])
+        emit(dict(phase="lie_full_band", group=group, build_seconds=build_s,
+                  bandwidth_columns=W, panel=banded.default_panel(W),
+                  max_bandwidth=banded.MAX_BANDWIDTH))
+        if W > banded.MAX_BANDWIDTH:
+            raise AssertionError(f"{group}: bandwidth {W} is above the banded tier's")
+
+
+def autodiff_rosenbrock():
+    """The Rosenbrock residual r = [10 (y - x^2), 1 - x] over one R2
+    variable (tests/test_optimizers.py's) as an ``AutoDiffFactor`` class:
+    its residual only, the Jacobian by ``torch.func``."""
+    import torch
+
+    from apex_tpu_torch.factors import AutoDiffFactor
+
+    class AutoDiffRosenbrock(AutoDiffFactor):
+        kind = "rosenbrock"
+
+        def signature(self):
+            return ("rosenbrock",)
+
+        def var_manifolds(self):
+            return ["R2"]
+
+        def residual_dim(self):
+            return 2
+
+        @classmethod
+        def residual(cls, manifolds, data, params):
+            x, y = params[0][..., 0], params[0][..., 1]
+            return torch.stack([10.0 * (y - x * x), 1.0 - x], dim=-1)
+
+    return AutoDiffRosenbrock
+
+
+def rosenbrock_problem():
+    """``autodiff_rosenbrock``'s factor from (-1.2, 1)."""
+    import numpy as np
+
+    import apex_tpu_torch as apx
+
+    problem = apx.Problem()
+    problem.add_variable("xy", "R2", np.array([-1.2, 1.0]))
+    problem.add_residual_block(["xy"], autodiff_rosenbrock()())
+    return problem
+
+
+def extended_chain(gname, n=8, seed=0):
+    """tests/test_extended_manifolds_e2e.py's chain on ``gname`` through
+    the port: ``n`` poses from steps 0.3 N(0, 1) and initial noise 0.05
+    (numpy, ``seed``), the first pose fixed, a between factor per step and
+    a loop closure."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.manifolds import get
+
+    G = get(gname)
+    rng = np.random.default_rng(seed)
+    truth = [G.identity()]
+    for _ in range(n - 1):
+        truth.append(G.plus(truth[-1], torch.from_numpy(0.3 * rng.normal(size=G.dof))))
+    problem = apx.Problem()
+    for i, t in enumerate(truth):
+        init = t if i == 0 else G.plus(t, torch.from_numpy(rng.normal(0, 0.05, G.dof)))
+        problem.add_variable(f"x{i}", gname, init.numpy())
+    problem.fix_variable("x0")
+    for a, b in [(i, i + 1) for i in range(n - 1)] + [(0, n - 1)]:
+        problem.add_residual_block([f"x{a}", f"x{b}"],
+                                   apx.BetweenFactor(G, G.between(truth[a], truth[b]).numpy()))
+    return problem
+
+
+def phase_lie_small():
+    """SGal3 and the autodiff Rosenbrock at the JAX tests' sizes, card
+    against CPU: tests/test_extended_manifolds_e2e.py's 8-pose chain with a
+    loop closure (steps 0.3 N(0, 1), initial noise 0.05, from numpy) through
+    LM, python and jit mode, converged below 1e-12 with the CPU's
+    iterations; the Rosenbrock ``AutoDiffFactor`` through LM, GN and DogLeg
+    with the CPU's iterations and final cost (rtol 1e-8)."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+
+    chain, rosen = extended_chain("SGal3"), rosenbrock_problem()
+    cases = [("sgal3_chain lm", chain, lambda mode: apx.LevenbergMarquardt(
+                 apx.LevenbergMarquardtConfig(max_iterations=60, mode=mode)))]
+    for kind, make in (("lm", lambda mode: apx.LevenbergMarquardt(
+                            apx.LevenbergMarquardtConfig(max_iterations=100, mode=mode))),
+                       ("gn", lambda mode: apx.GaussNewton(
+                            apx.GaussNewtonConfig(max_iterations=100, mode=mode))),
+                       ("dl", lambda mode: apx.DogLeg(
+                            apx.DogLegConfig(max_iterations=200, mode=mode)))):
+        cases.append((f"rosenbrock {kind}", rosen, make))
+    for label, problem, make in cases:
+        host = make("python").optimize(problem.compile(dtype=torch.float64, device="cpu"))
+        cp = problem.compile(dtype=torch.float64, device="cuda")
+        for mode in ("python", "jit"):
+            res = make(mode).optimize(cp)
+            emit(dict(phase="lie_small", case=label, mode=mode, iterations=res.iterations,
+                      status=res.status.name, final_cost=res.final_cost,
+                      cpu_iterations=host.iterations, cpu_final_cost=host.final_cost))
+            if (res.iterations, res.status) != (host.iterations, host.status) or not res.converged:
+                raise AssertionError(f"{label} {mode}: cuda {res.summary()} vs cpu "
+                                     f"{host.summary()}")
+            if label.startswith("sgal3"):
+                if not res.final_cost < 1e-12:
+                    raise AssertionError(f"{label} {mode}: final cost {res.final_cost}")
+            else:
+                np.testing.assert_allclose(res.final_cost, host.final_cost, rtol=1e-8,
+                                           atol=1e-25, err_msg=f"{label} {mode}")
+                np.testing.assert_allclose(res.variables["xy"], [1.0, 1.0], atol=1e-6)
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card")
+    start = time.perf_counter()
     sys.path.insert(0, REPO)
     from apex_tpu_torch.kernels import landmark_blocks as lb
 
@@ -1581,14 +2203,36 @@ def main():
     graphs.reset_counters()
     launches_jit, iterations_jit = phase_jit_ba(ds, ba_problem)
 
+    seconds = {"earlier_phases": time.perf_counter() - start}
+    t0 = time.perf_counter()
+    phase_camera_parity()
+    seconds["camera_parity"] = time.perf_counter() - t0
+    # the camera path's kernel count, from 0, python and jit mode together
+    lb.launches = 0
+    graphs.reset_counters()
+    t0 = time.perf_counter()
+    launches_camera, iterations_camera = phase_camera_full()
+    seconds["camera_full"] = time.perf_counter() - t0
+    if lb.launches + graphs.kernel_launches != launches_camera:
+        raise AssertionError(f"camera_full: {lb.launches} + {graphs.kernel_launches} kernel "
+                             f"launches counted, {launches_camera} summed over its solves")
+    t0 = time.perf_counter()
+    phase_lie_full()
+    phase_lie_small()
+    seconds["lie"] = time.perf_counter() - t0
+    emit(dict(phase="seconds", **seconds))
+
     main_shape = measured[(65_132, torch.float64)]
     emit({"kernels": [{
         "name": "invert_landmark_blocks",
         "route": "cuda",
         "source": "apex_tpu_torch/csrc/landmark_blocks.cu",
         "replaces": "apex_tpu/kernels/landmark_blocks.py:101",
-        "launches": launches,
-        "launches_per_lm_iteration": launches / iterations,
+        "launches": launches + launches_camera,
+        "launches_per_lm_iteration": (launches + launches_camera) / (iterations
+                                                                   + iterations_camera),
+        "launches_camera": launches_camera,
+        "launches_per_lm_iteration_camera": launches_camera / iterations_camera,
         "launches_jit": launches_jit,
         "launches_per_lm_iteration_jit": launches_jit / iterations_jit,
         "max_abs_err": main_shape["max_abs_err"],
@@ -1602,6 +2246,7 @@ def main():
         "share": main_shape["share"],
         "host_us": main_shape["host_us"],
         "call_ms": main_shape["call_ms"],
+        "smoke_seconds": time.perf_counter() - start,
         "shape": [65_132, 3, 3],
         "dtype": "float64",
         "shapes": [{key: m[key] for key in ("P", "dtype", "device_us", "bound_us", "share",

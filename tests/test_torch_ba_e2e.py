@@ -187,6 +187,9 @@ def test_port_imports_no_jax():
         "import apex_tpu_torch, apex_tpu_torch.cli.bundle_adjustment\n"
         "import apex_tpu_torch.kernels.landmark_blocks, apex_tpu_torch.convert\n"
         "import apex_tpu_torch.optim.graphs, apex_tpu_torch.cli.pose_graph\n"
+        "import apex_tpu_torch.cameras.extended, apex_tpu_torch.manifolds.sim3\n"
+        "import apex_tpu_torch.manifolds.sgal3, apex_tpu_torch.manifolds.se23\n"
+        "import apex_tpu_torch.factors.base, apex_tpu_torch.cameras.pinhole\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'apex_tpu')]\n"
         "assert not bad, bad\n"
         "import torch\n"

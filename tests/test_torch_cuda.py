@@ -10,6 +10,8 @@ import apex_tpu_torch as apx
 from apex_tpu_torch.ba import build_ba_problem
 from apex_tpu_torch.io import synthetic
 from apex_tpu_torch.kernels import landmark_blocks as lb
+from chip_smoke import (SELFCAL_MODELS, extended_chain, rosenbrock_problem, selfcal_problem,
+                        selfcal_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -612,3 +614,124 @@ def test_jit_dogleg_reuse_on_the_card(card):
     assert python.reused_steps > 10 and jit.reused_steps == python.reused_steps
     assert (rj.iterations, rj.status) == (rp.iterations, rp.status)
     np.testing.assert_allclose(rj.final_cost, rp.final_cost, rtol=1e-10)
+
+
+# -- slice 9: the camera models, the extended groups, AutoDiffFactor -----------
+
+# tests/test_cameras.py's intrinsics (this file imports no JAX test module)
+CAMERAS = {
+    "bal_pinhole": ([800.0, -0.05, 0.01], -1),
+    "pinhole": ([500.0, 510.0, 320.0, 240.0], +1),
+    "rad_tan": ([460.0, 455.0, 320.0, 240.0, -0.28, 0.07, 1e-4, -2e-4, 0.0], +1),
+    "kannala_brandt": ([380.0, 379.0, 318.0, 242.0, 0.01, -0.002, 0.001, -2e-4], +1),
+    "fov": ([300.0, 300.0, 320.0, 240.0, 0.9], +1),
+    "ucm": ([460.0, 460.0, 320.0, 240.0, 0.6], +1),
+    "eucm": ([460.0, 460.0, 320.0, 240.0, 0.6, 1.1], +1),
+    "double_sphere": ([350.0, 350.0, 320.0, 240.0, -0.2, 0.59], +1),
+    "ftheta": ([320.0, 240.0, 300.0, 5.0, -2.0, 0.3], +1),
+}
+
+
+@pytest.mark.parametrize("name", list(CAMERAS))
+def test_cameras_card_match_cpu(card, name):
+    """Projection, mask, Jacobians (autodiff for the extended models) and
+    unprojection on the card against the CPU (rtol 1e-12)."""
+    from apex_tpu_torch import cameras
+
+    intr, sign = CAMERAS[name]
+    rng = np.random.default_rng(0)
+    p = rng.uniform(-1, 1, (500, 3))
+    p[:, 2] = sign * rng.uniform(1.0, 5.0, 500)
+    p[::7, 2] *= -1.0  # some behind the camera
+    cam = cameras.get(name)
+    out = {}
+    for device in (card, torch.device("cpu")):
+        i = torch.tensor(intr, dtype=torch.float64, device=device).expand(500, len(intr))
+        x = torch.tensor(p, device=device)
+        uv, valid = cam.project(i, x)
+        out[device.type] = (uv, valid, *cam.jacobians(i, x), cam.unproject(i, uv),
+                            cam.project_batch(i, x))
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("solver", ["schur_explicit", "schur_implicit"])
+@pytest.mark.parametrize("model", ["kannala_brandt", "rad_tan"])
+def test_selfcal_jit_captured_matches_cpu(card, model, solver):
+    """tests/test_camera_selfcal.py's self-calibration problem
+    (``chip_smoke.selfcal_problem``) with autodiff camera Jacobians captured
+    into the step's CUDA graphs, the landmark kernel replayed once per LM
+    iteration: the CPU's python-mode iterations and status, its final cost
+    within rtol 1e-8 (1e-7 through ``schur_implicit``, whose PCG stops at a
+    relative residual of 1e-10 and leaves the weakly observed distortion
+    directions to the card's and the CPU's rounding), and the focal within
+    1% of the truth."""
+    from apex_tpu_torch.optim import graphs
+
+    intr = SELFCAL_MODELS[model]
+    problem, _ = selfcal_problem(model, intr, *selfcal_scene())
+    kw = dict(linear_solver_type=solver, max_iterations=40, pcg_tolerance=1e-10,
+              pcg_forcing=False, pcg_max_iterations=500)
+    graphs.reset_counters()
+    rj = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(mode="jit", **kw)).optimize(
+        problem.compile(dtype=torch.float64, device=card))
+    assert graphs.captures == 2 and graphs.kernel_launches >= rj.iterations
+    rh = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(**kw)).optimize(
+        problem.compile(dtype=torch.float64, device="cpu"))
+    assert rj.converged and (rj.iterations, rj.status) == (rh.iterations, rh.status)
+    np.testing.assert_allclose(rj.final_cost, rh.final_cost,
+                               rtol=1e-7 if solver == "schur_implicit" else 1e-8)
+    np.testing.assert_allclose(rj.variables["intr_shared"][0], intr[0], rtol=0.01)
+
+
+@pytest.mark.parametrize("gname", ["SE23", "Sim3", "SGal3"])
+def test_extended_groups_card_match_cpu(card, gname):
+    """Exp, log, compose, the adjoint and the tangent Jacobians (closed
+    form for SE23, ``torch.func`` autodiff and ``inv_ex`` for Sim3 and
+    SGal3) on the card against the CPU (rtol 1e-12)."""
+    from apex_tpu_torch.manifolds import get
+
+    G = get(gname)
+    t = torch.from_numpy(np.random.default_rng(1).normal(size=(64, G.dof)) * 0.5)
+    out = {}
+    for device in (card, torch.device("cpu")):
+        x = t.to(device)
+        e = G.exp(x)
+        out[device.type] = (e, G.log(e), G.compose(e, G.inverse(e.flip(0))), G.adjoint(e),
+                            G.rjac(x), G.ljac(x), G.rjac_inv(x), G.ljac_inv(x))
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("gname", ["SE23", "Sim3", "SGal3"])
+def test_extended_chain_jit_captured_matches_cpu(card, gname):
+    """The loop-closed chain of each extended group, jit mode captured on
+    the card: the CPU's iterations and status, a final cost below 1e-12."""
+    from apex_tpu_torch.optim import graphs
+
+    problem = extended_chain(gname)
+    graphs.reset_counters()
+    rj = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+        max_iterations=60, mode="jit")).optimize(problem.compile(device=card))
+    assert graphs.captures == 2
+    rh = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(max_iterations=60)).optimize(
+        problem.compile(device="cpu"))
+    assert rj.converged and (rj.iterations, rj.status) == (rh.iterations, rh.status)
+    assert rj.final_cost < 1e-12
+
+
+def test_autodiff_factor_jit_captured_on_the_card(card):
+    """An ``AutoDiffFactor`` (Rosenbrock) in jit mode on the card: captured,
+    the CPU's iterations and final cost (rtol 1e-8), the minimum (1, 1)."""
+    from apex_tpu_torch.optim import graphs
+
+    problem = rosenbrock_problem()
+    graphs.reset_counters()
+    rj = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+        max_iterations=100, mode="jit")).optimize(problem.compile(device=card))
+    assert graphs.captures == 2
+    rh = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(max_iterations=100)).optimize(
+        problem.compile(device="cpu"))
+    assert (rj.iterations, rj.status) == (rh.iterations, rh.status) and rj.converged
+    np.testing.assert_allclose(rj.final_cost, rh.final_cost, rtol=1e-8, atol=1e-25)
+    np.testing.assert_allclose(rj.variables["xy"], [1.0, 1.0], atol=1e-6)

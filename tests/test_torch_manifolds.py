@@ -103,8 +103,9 @@ def test_registry():
     assert get("SE3") is SE3 and get("SO3") is SO3
     assert get("SE2") is SE2 and get("SO2") is SO2
     assert get("R3").dof == 3 and get("R3").storage_dim == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        get("Sim3")
+    assert get("Sim3").dof == 7 and get("Sim3").storage_dim == 8
+    with pytest.raises(KeyError):
+        get("not_a_manifold")
 
 
 def _tangent_at(n, dof, seed, angle, rot=3):

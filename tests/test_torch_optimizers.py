@@ -16,9 +16,11 @@ from apex_tpu.factors.base import AutoDiffFactor
 from apex_tpu.io import synthetic as jax_synthetic
 from apex_tpu.optim.dogleg import _dogleg_step as jax_dogleg_step
 from apex_tpu_torch.ba import build_ba_problem
+from apex_tpu_torch.factors.base import AutoDiffFactor as PortAutoDiffFactor
 from apex_tpu_torch.factors.base import Factor
 from apex_tpu_torch.io import synthetic
 from apex_tpu_torch.optim.dogleg import _dogleg_step
+from chip_smoke import autodiff_rosenbrock
 from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
 
 # -- the step function ----------------------------------------------------------
@@ -112,6 +114,11 @@ class Rosenbrock(Factor):
         return r, [J]
 
 
+# the same factor in the port through ``AutoDiffFactor``: its residual only,
+# the Jacobian by ``torch.func`` (the card's ``lie_small`` phase solves it)
+AutoDiffRosenbrock = autodiff_rosenbrock()
+
+
 def _rosenbrock(pkg, factor):
     p = pkg.Problem()
     p.add_variable("xy", "R2", np.array([-1.2, 1.0]))
@@ -156,6 +163,81 @@ def test_rosenbrock_matches_apex_tpu(kind, iterations):
         # the initial radius of 1e4 is far too wide: the first steps are
         # rejected, each retried from the cache with a halved radius
         assert rt.unsuccessful_steps > 10 and solver.reused_steps > 10
+
+
+@pytest.mark.parametrize("kind,iterations", [("gn", 100), ("dl", 200), ("lm", 100)])
+def test_autodiff_rosenbrock_matches_apex_tpu(kind, iterations):
+    """The port's ``AutoDiffFactor`` Rosenbrock against the JAX package's:
+    the same solve, iteration for iteration."""
+    rj = _make(jax_apx, kind, max_iterations=iterations).optimize(
+        _compile(jax_apx, _rosenbrock(jax_apx, JaxRosenbrock)))
+    rt = _make(apx, kind, max_iterations=iterations).optimize(
+        _compile(apx, _rosenbrock(apx, AutoDiffRosenbrock)))
+    assert rt.converged
+    _assert_same_solve(rt, rj)
+    np.testing.assert_allclose(rt.variables["xy"], rj.variables["xy"], rtol=1e-8)
+
+
+class _AutoDiffBetween(PortAutoDiffFactor):
+    """An SE3 between residual written as an ``AutoDiffFactor``: two slots,
+    a right perturbation on a Lie group, and per-block data."""
+
+    kind = "autodiff_between"
+
+    def __init__(self, meas):
+        self.meas = np.asarray(meas, dtype=np.float64)
+
+    def signature(self):
+        return ("autodiff_between",)
+
+    def var_manifolds(self):
+        return ["SE3", "SE3"]
+
+    def residual_dim(self):
+        return 6
+
+    def data(self):
+        return {"meas": self.meas}
+
+    @classmethod
+    def residual(cls, manifolds, data, params):
+        G = manifolds[0]
+        return G.log(G.compose(G.between(params[1], params[0]), data["meas"]))
+
+
+def test_autodiff_factor_jacobians_match_the_closed_form():
+    """Slot Jacobians of the autodiff between factor equal the closed-form
+    ``BetweenFactor``'s (rtol 1e-10) on a batch of blocks."""
+    from apex_tpu_torch.factors import BetweenFactor
+    from apex_tpu_torch.manifolds import SE3
+
+    rng = np.random.default_rng(4)
+    xi, xj, meas = (SE3.exp(torch.from_numpy(rng.normal(size=(9, 6)) * 0.5)) for _ in range(3))
+    r, jacs = _AutoDiffBetween.linearize([SE3, SE3], {"meas": meas}, [xi, xj], True)
+    r_ref, jacs_ref = BetweenFactor.linearize([SE3, SE3], {"meas": meas}, [xi, xj], True)
+    np.testing.assert_allclose(r.numpy(), r_ref.numpy(), rtol=1e-12, atol=1e-14)
+    for got, want in zip(jacs, jacs_ref):
+        assert got.shape == (9, 6, 6)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10, atol=1e-12)
+    # f32 blocks give f32 Jacobians
+    r32, jacs32 = _AutoDiffBetween.linearize([SE3, SE3], {"meas": meas.float()},
+                                             [xi.float(), xj.float()], True)
+    assert r32.dtype == torch.float32 and all(j.dtype == torch.float32 for j in jacs32)
+    np.testing.assert_allclose(jacs32[0].double().numpy(), jacs[0].numpy(), rtol=1e-3,
+                               atol=1e-4)
+
+
+def test_masked_autodiff_step_reads_nothing():
+    """LM steps of the autodiff Rosenbrock in the warm-up form of jit mode,
+    under a dispatch mode that fails on any host read: ``AutoDiffFactor``'s
+    ``jacfwd`` under ``vmap`` can be captured. Equal to the jit solve."""
+    from test_torch_jit import _masked_solve
+
+    cp = _compile(apx, _rosenbrock(apx, AutoDiffRosenbrock))
+    rj = _make(apx, "lm", max_iterations=5, mode="jit").optimize(cp)
+    st = _masked_solve(_make(apx, "lm", max_iterations=5, mode="jit"), cp, 5)
+    assert int(st["iteration"]) == rj.iterations == 5
+    np.testing.assert_allclose(float(st["cost"]), rj.final_cost, rtol=1e-12)
 
 
 # -- pose graphs ----------------------------------------------------------------

@@ -322,6 +322,9 @@ def test_port_imports_no_jax():
         "import apex_tpu_torch.core.covariance, apex_tpu_torch.linalg.banded_qr\n"
         "import apex_tpu_torch.linalg.iterative, apex_tpu_torch.linalg.schur\n"
         "import apex_tpu_torch.linalg.sparse_general\n"
+        "import apex_tpu_torch.cameras.extended, apex_tpu_torch.manifolds.sim3\n"
+        "import apex_tpu_torch.manifolds.sgal3, apex_tpu_torch.manifolds.se23\n"
+        "import apex_tpu_torch.factors.base\n"
         "g = apex_tpu_torch.io.synthetic.synthetic_pose_graph_2d(20).to_problem(fix_first=True)\n"
         "for solver in ('sparse_qr', 'pcg'):\n"
         "    apex_tpu_torch.DogLeg(apex_tpu_torch.DogLegConfig()).optimize(\n"
