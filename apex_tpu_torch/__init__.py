@@ -16,7 +16,12 @@ python loop mode:
   dense tier, ``dense_cholesky`` (LM's default) and ``dense_qr``, or ``pcg``
   (matrix-free CG on the normal equations);
 - covariance blocks after a solve (``compute_covariances=True``,
-  ``core.covariance``).
+  ``core.covariance``);
+- the support surface: observers (``observers``: history, callbacks, the
+  visualization observer with its headless sink), checkpoint / resume
+  (``core.checkpoint``, ``optimize(..., checkpoint=)``), the error
+  hierarchy (``errors``), ``config``, ``utils`` (logger, profiling), the
+  dataset registry (``io.datasets``, behind both CLIs' ``--dataset``).
 
 The dtype (f64 by default) and the device (``"cuda"`` by default) are
 arguments of ``Problem.compile(dtype=..., device=...)``; ``"cuda"`` without a
@@ -28,6 +33,7 @@ from .device import disable_tf32
 
 disable_tf32()
 
+from . import errors, observers  # noqa: E402
 from .core import CauchyLoss, HuberLoss, L1Loss, L2Loss, Loss  # noqa: E402
 from .core.problem import CompiledProblem, Problem  # noqa: E402
 from .factors import BetweenFactor, ManifoldPriorFactor, PriorFactor  # noqa: E402
@@ -47,6 +53,7 @@ from .optim import (  # noqa: E402
 __version__ = "0.1.0"
 
 __all__ = [
+    "errors", "observers",
     "SE2", "SE3", "SO2", "SO3", "Rn",
     "Problem", "CompiledProblem", "BetweenFactor", "PriorFactor", "ManifoldPriorFactor",
     "Graph", "load_g2o", "save_g2o", "load_toro", "save_toro",

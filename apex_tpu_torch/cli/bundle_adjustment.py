@@ -2,10 +2,15 @@
 ``apex_tpu/cli/bundle_adjustment.py``, same flags and report).
 
 ``--platform`` picks the torch device: ``cuda`` (default) or ``cpu``.
-Asking for ``cuda`` on a machine without a card raises.
+Asking for ``cuda`` on a machine without a card raises. ``--dataset NAME``
+loads a BAL registry entry (``io.datasets``) from the cache,
+``$APEX_TPU_DATA_DIR`` or ``~/.cache/apex_tpu``, downloading and
+decompressing it where it is absent. Progress goes to stderr through
+``utils.init_logger`` (level from ``APEX_LOG``).
 
 Usage:
     python -m apex_tpu_torch.cli.bundle_adjustment --file problem.txt
+    python -m apex_tpu_torch.cli.bundle_adjustment --dataset trafalgar-257 --solver explicit
     python -m apex_tpu_torch.cli.bundle_adjustment --synthetic --cameras 20 --points 500 --platform cpu
 """
 
@@ -21,7 +26,7 @@ def build_parser():
         prog="bundle_adjustment", description="apex-tpu bundle adjustment (PyTorch port)")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--file", help="BAL problem file")
-    src.add_argument("--dataset", help="named BAL dataset (downloads; not ported)")
+    src.add_argument("--dataset", help="named BAL dataset (downloads; see io.datasets)")
     src.add_argument("--synthetic", action="store_true", help="synthetic BA (offline)")
     p.add_argument("--cameras", type=int, default=20, help="synthetic camera count")
     p.add_argument("--points", type=int, default=500, help="synthetic point count")
@@ -52,17 +57,19 @@ def main(argv=None):
     from apex_tpu_torch.device import resolve_device
     from apex_tpu_torch.factors.projection import OPTIMIZE_MODES
     from apex_tpu_torch.io import load_bal, synthetic
+    from apex_tpu_torch.io.datasets import ensure_ba_dataset
+    from apex_tpu_torch.utils import init_logger
 
+    log = init_logger()
     device = resolve_device(args.platform)
-    if args.dataset:
-        raise NotImplementedError(
-            "the dataset registry (downloads) is not ported yet (ROADMAP A.10); use --file")
     if args.synthetic:
         ds = synthetic.synthetic_ba(n_cameras=args.cameras, n_points=args.points)
+    elif args.dataset:
+        ds = load_bal(ensure_ba_dataset(args.dataset))
     else:
         ds = load_bal(args.file)
-    print(f"BA problem: {ds.num_cameras} cameras, {ds.num_points} points, "
-          f"{ds.num_observations} observations", file=sys.stderr)
+    log.info("BA problem: %d cameras, %d points, %d observations",
+             ds.num_cameras, ds.num_points, ds.num_observations)
 
     loss = None if args.loss == "none" else loss_by_name(args.loss, args.loss_scale)
     problem = build_ba_problem(ds, mode=args.mode, loss=loss, max_points=args.max_points)
@@ -70,8 +77,7 @@ def main(argv=None):
     solver_type = {"implicit": "schur_implicit", "explicit": "schur_explicit",
                    "dense": "dense_cholesky"}[args.solver]
     if "landmark" not in OPTIMIZE_MODES[args.mode] and solver_type != "dense_cholesky":
-        print(f"mode {args.mode} has no landmark block to eliminate; using dense solver",
-              file=sys.stderr)
+        log.info("mode %s has no landmark block to eliminate; using dense solver", args.mode)
         solver_type = "dense_cholesky"
     cfg = apx.LevenbergMarquardtConfig(
         linear_solver_type=solver_type,

@@ -11,13 +11,16 @@ solvers ``sparse_cholesky``, ``sparse_qr``, ``sparse_general``,
 ``--platform`` picks the torch device: ``cuda`` (default) or ``cpu``. Asking
 for ``cuda`` on a machine without a card raises. ``--profile`` writes a
 ``torch.profiler`` trace of the last solve under the system's temporary
-directory. ``--jit`` runs every optimizer with every linear solver in
-``mode="jit"`` (the whole solve on the device, replayed CUDA graphs on a
-card). Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
-item: ``--dataset`` (A.10).
+directory (``utils.profiling.trace``). ``--jit`` runs every optimizer with
+every linear solver in ``mode="jit"`` (the whole solve on the device,
+replayed CUDA graphs on a card). ``--dataset NAME`` loads a registry entry
+(``io.datasets``) from the cache, ``$APEX_TPU_DATA_DIR`` or
+``~/.cache/apex_tpu``, downloading it where it is absent. Progress goes to
+stderr through ``utils.init_logger`` (level from ``APEX_LOG``).
 
 Usage:
     python -m apex_tpu_torch.cli.pose_graph --file graph.g2o
+    python -m apex_tpu_torch.cli.pose_graph --dataset sphere2500
     python -m apex_tpu_torch.cli.pose_graph --synthetic sphere --poses 2500
     python -m apex_tpu_torch.cli.pose_graph --synthetic sphere --poses 2500 --jit
     python -m apex_tpu_torch.cli.pose_graph --synthetic manhattan --poses 3500
@@ -43,7 +46,7 @@ def build_parser():
         prog="pose_graph", description="apex-tpu pose graph optimization (PyTorch port)")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--file", help="g2o or TORO file path")
-    src.add_argument("--dataset", help="named dataset (downloads; not ported)")
+    src.add_argument("--dataset", help="named dataset (downloads; see io.datasets)")
     src.add_argument("--synthetic", choices=["ring", "manhattan", "sphere"],
                      help="generate a synthetic dataset (offline)")
     p.add_argument("--poses", type=int, default=500, help="synthetic pose count")
@@ -72,10 +75,10 @@ def build_parser():
 
 def load_graph(args):
     from apex_tpu_torch.io import load_g2o, load_toro, synthetic
+    from apex_tpu_torch.io.datasets import ensure_pose_graph_dataset
 
     if args.dataset:
-        raise NotImplementedError(
-            "the dataset registry (downloads) is not ported yet (ROADMAP A.10); use --file")
+        return load_g2o(ensure_pose_graph_dataset(args.dataset)), args.dataset
     if args.synthetic:
         if args.synthetic == "sphere":
             return synthetic.synthetic_pose_graph_3d(n_poses=args.poses), args.synthetic
@@ -119,11 +122,14 @@ def main(argv=None):
 
     from apex_tpu_torch.device import resolve_device
     from apex_tpu_torch.io import save_g2o
+    from apex_tpu_torch.utils import init_logger
+    from apex_tpu_torch.utils.profiling import trace
 
+    log = init_logger()
     device = resolve_device(args.platform)
     graph, name = load_graph(args)
-    print(f"loaded {name}: {graph.num_vertices} vertices, {graph.num_edges} edges "
-          f"({'SE3' if graph.is_se3 else 'SE2'})", file=sys.stderr)
+    log.info("loaded %s: %d vertices, %d edges (%s)", name, graph.num_vertices,
+             graph.num_edges, "SE3" if graph.is_se3 else "SE2")
     loss = make_loss(args)
     optimizers = ["lm", "gn", "dl"] if args.optimizer == "all" else [args.optimizer]
     cp = graph.to_problem(loss=loss, fix_first=args.fix_first).compile(device=device)
@@ -140,18 +146,12 @@ def main(argv=None):
     for kind in optimizers:
         solver = make_solver(kind, args)
         if args.profile:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if device.type == "cuda":
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            with torch.profiler.profile(activities=activities) as prof:
+            with trace(str(TRACE_PATH.parent), TRACE_PATH.name):
                 result, elapsed = solve(solver)
-            TRACE_PATH.parent.mkdir(parents=True, exist_ok=True)
-            prof.export_chrome_trace(str(TRACE_PATH))
-            print(f"profiler trace written to {TRACE_PATH}", file=sys.stderr)
         else:
             result, elapsed = solve(solver)
         rows.append((kind, result, elapsed, graph.chi2(result.variables)))
-        print(f"{kind}: {result.summary()}", file=sys.stderr)
+        log.info("%s: %s", kind, result.summary())
 
     print(f"\n{'optimizer':>9} {'status':>28} {'iters':>5} {'init cost':>12} "
           f"{'final cost':>12} {'chi2 before':>12} {'chi2 after':>12} {'time':>9}")
@@ -165,7 +165,7 @@ def main(argv=None):
         for vid in vertices:
             vertices[vid] = np.asarray(result.variables[f"x{vid}"])
         save_g2o(args.save_output, graph)
-        print(f"optimized graph written to {args.save_output}", file=sys.stderr)
+        log.info("optimized graph written to %s", args.save_output)
     return 0
 
 

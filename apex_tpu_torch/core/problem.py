@@ -19,6 +19,7 @@ JAX package's: numeric-aware name order, or reverse Cuthill-McKee under
 from __future__ import annotations
 
 import dataclasses
+import os
 import re as _re
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -310,7 +311,8 @@ class Problem:
 
     def compile(self, initial_values: Optional[Dict[str, np.ndarray]] = None,
                 dtype=None, device="cuda", ordering: str = "auto") -> "CompiledProblem":
-        """Freeze the graph into tensors of ``dtype`` (default f64) on
+        """Freeze the graph into tensors of ``dtype`` (default
+        ``config.default_dtype()``: f64, f32 under ``APEX_TPU_NO_X64=1``) on
         ``device`` (default ``"cuda"``, the card; ``"cpu"`` runs the plain
         PyTorch path). Asking for the card where there is none raises."""
         dtype = resolve_dtype(dtype)
@@ -471,11 +473,11 @@ class CompiledProblem:
         return tuple(p.values0 for p in self.pools)
 
     def values_dict(self, values) -> Dict[str, np.ndarray]:
+        """{name: host storage vector}: one copy to the host per pool, each
+        vector a view of its pool's row."""
         out = {}
         for p, arr in zip(self.pools, values):
-            arr = arr.detach().cpu().numpy()
-            for i, n in enumerate(p.names):
-                out[n] = arr[i]
+            out.update(zip(p.names, arr.detach().cpu().numpy()))
         return out
 
     def get_value(self, values, name: str) -> torch.Tensor:
@@ -597,3 +599,21 @@ class CompiledProblem:
         for arr in values:
             total = total + torch.sum(arr * arr)
         return torch.sqrt(total)
+
+    # -- debugging -----------------------------------------------------------
+
+    def dump_debug(self, directory, values, with_jacobian: bool = False):
+        """Write the residuals, the variables (and optionally the dense
+        Jacobian) as text files for offline inspection, in the JAX package's
+        formats: ``residuals.txt`` and ``jacobian.txt`` by ``np.savetxt``,
+        ``variables.txt`` one name and its storage (``%.17e``) per line, in
+        name order."""
+        os.makedirs(directory, exist_ok=True)
+        r = self.residual_vector(values).detach().cpu().numpy()
+        np.savetxt(os.path.join(directory, "residuals.txt"), r)
+        with open(os.path.join(directory, "variables.txt"), "w") as f:
+            for name, v in sorted(self.values_dict(values).items()):
+                f.write(f"{name} {' '.join(f'{x:.17e}' for x in v)}\n")
+        if with_jacobian:
+            _, J = self.assemble_dense_jacobian(values)
+            np.savetxt(os.path.join(directory, "jacobian.txt"), J.detach().cpu().numpy())

@@ -1,7 +1,8 @@
 """Device and dtype policy of the PyTorch port.
 
 - f64 is the default compile dtype, as in ``apex_tpu`` (the H100 has native
-  FP64, so it is also the parity mode on the card). f32 is the speed mode.
+  FP64, so it is also the parity mode on the card), f32 under
+  ``APEX_TPU_NO_X64=1`` (``config.default_dtype``). f32 is the speed mode.
 - The device is always explicit. ``"cuda"`` on a machine without CUDA raises:
   nothing probes for a card and carries on on the CPU.
 - TF32 is off for matmuls and cuDNN: it keeps about three decimal digits,
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-DEFAULT_DTYPE = torch.float64
+from .config import default_dtype
 
 
 def disable_tf32() -> None:
@@ -37,9 +38,10 @@ def resolve_device(device) -> torch.device:
 
 
 def resolve_dtype(dtype) -> torch.dtype:
-    """``None`` (f64) or ``torch.float32`` / ``torch.float64``."""
+    """``None`` (``config.default_dtype()``: f64 unless ``APEX_TPU_NO_X64=1``)
+    or ``torch.float32`` / ``torch.float64``."""
     if dtype is None:
-        return DEFAULT_DTYPE
+        return default_dtype()
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported dtype {dtype!r} (torch.float32 or torch.float64)")
     return dtype

@@ -1,6 +1,6 @@
 """Host-side I/O of the port: BAL, G2O and TORO files, the pose-graph
-container, and the synthetic generators. The dataset registry and
-rosbag/DDS are ROADMAP A.10."""
+container, the synthetic generators, and the dataset registry
+(``io.datasets``). rosbag/DDS are ROADMAP A.10b."""
 
 from . import synthetic
 from .bal import BalDataset, load_bal, save_bal

@@ -212,3 +212,31 @@ class SolverResult:
             f"cost {self.initial_cost:.6e} -> {self.final_cost:.6e} "
             f"({frac:.2f}% reduction) in {self.elapsed_seconds*1e3:.1f} ms"
         )
+
+    def detailed_summary(self, name: str = "Optimizer") -> str:
+        """The multi-section report of the JAX package's ``SolverResult``:
+        the status, counts, costs, final norms, wall time, and the
+        per-iteration table where stats were collected."""
+        frac = ((self.initial_cost - self.final_cost) / self.initial_cost * 100.0
+                if self.initial_cost > 0 else 0.0)
+        lines = [
+            f"==== {name} Summary " + "=" * max(0, 48 - len(name)),
+            f"  status:               {self.status.name}",
+            f"  converged:            {self.converged}",
+            f"  iterations:           {self.iterations}"
+            f" ({self.successful_steps} accepted, {self.unsuccessful_steps} rejected)",
+            f"  initial cost:         {self.initial_cost:.6e}",
+            f"  final cost:           {self.final_cost:.6e}",
+            f"  cost reduction:       {frac:.4f}%",
+            f"  final |gradient|:     {self.final_gradient_norm:.3e}",
+            f"  final |step|:         {self.final_step_norm:.3e}",
+            f"  cost evaluations:     {self.cost_evaluations}",
+            f"  jacobian evaluations: {self.jacobian_evaluations}",
+            f"  wall time:            {self.elapsed_seconds*1e3:.2f} ms",
+        ]
+        if self.iteration_stats:
+            lines.append("  per-iteration stats:")
+            lines.append("  " + IterationStats.HEADER)
+            for st in self.iteration_stats:
+                lines.append("  " + st.line())
+        return "\n".join(lines)

@@ -103,7 +103,9 @@ class LevenbergMarquardtConfig:
     schur_pp_shift_floor: Optional[float] = None
     # banded_cholesky block size (None: default_panel of the bandwidth)
     banded_panel: int | None = None
-    # Hessian hook for observers (observers are ROADMAP A.10)
+    # observers' Hessian hook: each iteration, the dense (H, g) at the new
+    # point, assembled anew and copied to the host, goes to every
+    # observer's set_matrix_data (python mode; H is D^2)
     expose_matrix_data: bool = False
 
     @classmethod
@@ -175,11 +177,17 @@ class LevenbergMarquardt:
 
     def __init__(self, config: Optional[LevenbergMarquardtConfig] = None):
         self.config = config or LevenbergMarquardtConfig()
+        # called on the host after each iteration and at the end; a solver
+        # with observers runs python mode
+        self.observers = []
         # step functions per compiled problem: the Schur structure analysis
         # runs once per problem object, and dies with it
         self._step_cache = weakref.WeakKeyDictionary()
         # jit mode: the captured graphs and their static state per problem
         self._jit_cache = weakref.WeakKeyDictionary()
+
+    def add_observer(self, observer):
+        self.observers.append(observer)
 
     # ------------------------------------------------------------------
     def _make_solve_fn(self, cp: CompiledProblem, sync_free: bool = False):
@@ -433,22 +441,32 @@ class LevenbergMarquardt:
         return step
 
     # ------------------------------------------------------------------
-    def optimize(self, problem, initial_values=None) -> SolverResult:
+    def optimize(self, problem, initial_values=None, checkpoint=None) -> SolverResult:
         """Run the optimization. A ``Problem`` is compiled with
         ``Problem.compile``'s defaults (f64 on the card, which raises where
         there is none); compile it yourself to pick the dtype and the
-        device."""
+        device.
+
+        ``checkpoint`` (a ``core.checkpoint.OptimizerCheckpoint``) resumes a
+        solve, as in the JAX package: it is validated against the problem,
+        its values are cast to the problem's dtype and device, its damping
+        and nu are restored (not DogLeg's trust region), the iteration
+        counter starts again at 0, and the solve runs python mode whatever
+        ``mode`` says. With observers, ``mode="jit"`` runs python mode too."""
         cfg = self.config
         if cfg.mode not in ("python", "jit"):
             raise ValueError(f"unknown mode {cfg.mode!r}; 'python' or 'jit'")
         cp = problem if isinstance(problem, CompiledProblem) else problem.compile(initial_values)
+        if checkpoint is not None:
+            checkpoint.validate_against(cp)
+            return self._optimize_python(cp, checkpoint=checkpoint)
         if not cp.groups or cp.total_dof == 0:
             values = cp.initial_values()
             cost = float(cp.cost(values)) if cp.groups else 0.0
             return SolverResult(status=Status.CONVERGED, iterations=0,
                                 initial_cost=cost, final_cost=cost,
                                 elapsed_seconds=0.0, variables=cp.values_dict(values))
-        if cfg.mode == "jit":
+        if cfg.mode == "jit" and not self.observers:
             return self._optimize_jit(cp)
         return self._optimize_python(cp)
 
@@ -463,16 +481,39 @@ class LevenbergMarquardt:
             return np.clip(lam0, t(cfg.damping_min), t(cfg.damping_max))
         return t(cfg.damping if not isinstance(cfg.damping, str) else 1e-3)
 
-    def _optimize_python(self, cp: CompiledProblem) -> SolverResult:
+    def _notify_step(self, cp: CompiledProblem, values, iteration, cost, gradient_norm,
+                     damping, step_norm, rho):
+        """The observers' per-iteration hooks: with ``expose_matrix_data``
+        first (H, g) at the new point, then ``on_step`` with a fresh dict of
+        the variables per observer, all over one host copy of each pool."""
+        if self.config.expose_matrix_data:
+            H, g, _ = cp.assemble_normal(values)
+            H, g = H.cpu().numpy(), g.cpu().numpy()
+            for obs in self.observers:
+                if hasattr(obs, "set_matrix_data"):
+                    obs.set_matrix_data(H, g)
+        named = cp.values_dict(values)
+        damping = float(damping["delta"] if isinstance(damping, dict) else damping)
+        for obs in self.observers:
+            obs.on_step(dict(named), iteration, cost, gradient_norm, damping, step_norm,
+                        float(rho))
+
+    def _optimize_python(self, cp: CompiledProblem, checkpoint=None) -> SolverResult:
         cfg = self.config
         start = time.perf_counter()
-        values = cp.initial_values()
+        if checkpoint is not None:
+            values = tuple(torch.tensor(v, dtype=cp.dtype, device=cp.device)
+                           for v in checkpoint.values)
+        else:
+            values = cp.initial_values()
         initial_cost = float(cp.cost(values))
         if cp not in self._step_cache:
             self._step_cache[cp] = self._make_step_fn(cp)
         step_fn = self._step_cache[cp]
         damping = self._init_damping_state(cp, values)
         nu = _np_float(cp)(2.0)
+        if checkpoint is not None and not isinstance(damping, dict):
+            damping, nu = _np_float(cp)(checkpoint.damping), _np_float(cp)(checkpoint.nu)
         jacobi_scale = torch.ones(cp.total_dof, dtype=cp.dtype, device=cp.device)
 
         stats = [] if (cfg.collect_stats or cfg.verbose) else None
@@ -510,6 +551,9 @@ class LevenbergMarquardt:
                     print(st.line())
             prev_cost = cost
 
+            if self.observers:
+                self._notify_step(cp, values, iteration, cost, grad_norm, damping, step_norm,
+                                  metrics["rho"])
             if (status == Status.RUNNING and cfg.timeout is not None
                     and time.perf_counter() - start >= cfg.timeout):
                 status = Status.TIMEOUT
@@ -523,13 +567,18 @@ class LevenbergMarquardt:
 
             covariances = compute_covariances(cp, values)
 
+        final_vars = cp.values_dict(values)
+        for obs in self.observers:
+            if hasattr(obs, "notify_complete"):
+                obs.notify_complete(final_vars, iteration)
+
         return SolverResult(
             status=status,
             iterations=iteration,
             initial_cost=initial_cost,
             final_cost=cost,
             elapsed_seconds=time.perf_counter() - start,
-            variables=cp.values_dict(values),
+            variables=final_vars,
             final_gradient_norm=grad_norm,
             final_step_norm=step_norm,
             cost_evaluations=cost_evals,

@@ -4,7 +4,9 @@ Schur) and pose-graph paths (SE3, SE2, the robust-loss sweep with a prior,
 the dense solvers, Gauss-Newton and DogLeg, sparse_qr, pcg, covariances,
 the general-sparsity tier), lens self-calibration through the 8 camera
 models, and pose graphs on the extended Lie groups once on one CUDA card,
-in python mode and in ``mode="jit"`` (replayed CUDA graphs; phases 19-28).
+in python mode and in ``mode="jit"`` (replayed CUDA graphs; phases 19-28),
+then the solver's support surface: observers, checkpoint / resume and the
+CLIs' ``--dataset`` (phases 29-31).
 
 Run from the repository root: ``python3 chip_smoke.py``. Phases, in order,
 each printing one JSON line; any failure raises and exits non-zero:
@@ -144,13 +146,38 @@ each printing one JSON line; any failure raises and exits non-zero:
     (``lifted_sphere``) through LM ``sparse_cholesky``, f64, as phase 20;
 28. lie small: tests/test_extended_manifolds_e2e.py's SGal3 chain and the
     Rosenbrock ``AutoDiffFactor`` (LM, GN, DogLeg), python and jit mode on
-    the card against the CPU.
+    the card against the CPU;
+29. support BA: phase 5's problem and config in f64, solved twice without
+    observers (the reference and its spread), once with a
+    ``HistoryObserver``, a ``CheckpointObserver(every=3)`` and a
+    ``RerunObserver`` on a ``MemorySink``, the same under ``mode="jit"``
+    (which must run python mode: no graph captured or replayed), and
+    resumed from the last checkpoint. Gates: the observed solves give the
+    reference's iterations and status, the history its costs (rtol 1e-10,
+    or 10x the spread); the resume's initial cost is the checkpoint's
+    (rtol 1e-10) and it passes the BA gate; one kernel launch per LM
+    iteration in every solve. Prints the observers' host seconds per LM
+    iteration, the checkpoint's bytes and save seconds, the sink's records
+    and the peak memory;
+30. support pose graph: the sphere with ``expose_matrix_data`` (a dense H of
+    15,000^2 to the host each iteration), a ``RerunObserver`` and a
+    ``HistoryObserver``: the JAX package's constants as in phase 7, H and g
+    of 15,000, a 256 x 256 x 3 heat map; seconds per iteration with and
+    without the hook;
+31. support CLI: the trafalgar-scale synthetic and the sphere written with
+    ``save_bal`` / ``save_g2o`` into a temporary ``APEX_TPU_DATA_DIR``
+    under the registry's names (nothing is fetched), then ``python -m
+    apex_tpu_torch.cli.bundle_adjustment --dataset trafalgar-257 --solver
+    explicit`` (exit 0, the RMSE gate, one kernel launch per LM iteration)
+    and ``python -m apex_tpu_torch.cli.pose_graph --dataset sphere2500``
+    (exit 0, the library's solve of the same file, the sphere's constants),
+    and one sphere solve under ``utils.profiling.trace``.
 
 The pose-graph paths launch no kernel of the port's own (the TPU reference
 ran them in XLA, outside Pallas): the landmark-block kernel, the one hand
 kernel, runs on the BA paths only (the BAL and the self-calibration ones).
-Then the kernel summary line (the python-mode and camera launches, the jit
-BA launches, each per LM iteration), and last
+Then the kernel summary line (the python-mode, camera and support launches,
+the jit BA launches, each per LM iteration), and last
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without one.
 """
@@ -390,6 +417,8 @@ SWEEP_COSTS = {"l2": (6145.86441008718, 16.063378445855403),
 # the 20^3 lattice
 GRID12_INITIAL, GRID12_FINAL, GRID12_ITERATIONS = 174.42628102979307, 10.614117258370733, 3
 GRID20_CORE_BLOCKS = 3377
+# the sphere's tangent dimension: the dense H of expose_matrix_data is D^2
+SPHERE_DOF = 15_000
 # the certified fixtures' solver settings
 CERTIFIED = dict(max_iterations=100, cost_tolerance=1e-10, parameter_tolerance=1e-14,
                  gradient_tolerance=1e-14)
@@ -1206,14 +1235,15 @@ def graph_counters():
                 eager_kernel_launches=lb.launches)
 
 
-def counted_solve(solver, cp):
-    """One synchronized solve: (result, seconds, counter increments)."""
+def counted_solve(solver, cp, **kw):
+    """One synchronized solve (``kw`` to ``optimize``): (result, seconds,
+    counter increments)."""
     import torch
 
     before = graph_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = solver.optimize(cp)
+    res = solver.optimize(cp, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return res, seconds, {k: v - before[k] for k, v in graph_counters().items()}
@@ -2143,7 +2173,314 @@ def phase_lie_small():
                 np.testing.assert_allclose(res.variables["xy"], [1.0, 1.0], atol=1e-6)
 
 
+class TimedObserver:
+    """Wraps an observer and adds up the host seconds of its hooks."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.seconds = 0.0
+        self.calls = 0
+
+    def _timed(self, fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+
+    def on_step(self, *args):
+        self._timed(self.inner.on_step, *args)
+
+    def set_matrix_data(self, hessian, gradient):
+        if hasattr(self.inner, "set_matrix_data"):
+            self._timed(self.inner.set_matrix_data, hessian, gradient)
+
+    def notify_complete(self, *args):
+        self._timed(self.inner.notify_complete, *args)
+
+
+def support_observers(cp, config, checkpoint_path=None):
+    """{name: TimedObserver} over a ``HistoryObserver``, a ``RerunObserver``
+    on a ``MemorySink`` with ``config``, and (with a path) a
+    ``CheckpointObserver(every=3)``."""
+    from apex_tpu_torch.core.checkpoint import CheckpointObserver
+    from apex_tpu_torch.observers import HistoryObserver, RerunObserver
+    from apex_tpu_torch.observers.visualization import MemorySink
+
+    observers = {"history": HistoryObserver(),
+                 "rerun": RerunObserver(config, sink=MemorySink())}
+    if checkpoint_path is not None:
+        observers["checkpoint"] = CheckpointObserver(cp, checkpoint_path, every=3)
+    return {name: TimedObserver(obs) for name, obs in observers.items()}
+
+
+def support_solve(cfg, cp, observers=(), checkpoint=None):
+    """One synchronized solve through the public entry point: (result,
+    seconds, kernel launches, graph captures and replays)."""
+    import apex_tpu_torch as apx
+
+    lm = apx.LevenbergMarquardt(cfg)
+    for obs in observers:
+        lm.add_observer(obs)
+    res, seconds, counts = counted_solve(lm, cp, checkpoint=checkpoint)
+    return (res, seconds, counts["eager_kernel_launches"], counts["captures"],
+            counts["replays"])
+
+
+def phase_support_ba(ds, problem, workdir):
+    """Observers, checkpoint / resume on the trafalgar-scale BA (phase 5's
+    problem and config, f64): (kernel launches, LM iterations) summed over
+    the phase's solves."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.ba import rmse
+    from apex_tpu_torch.core.checkpoint import OptimizerCheckpoint
+    from apex_tpu_torch.observers import VisualizationConfig
+
+    cp = problem.compile(dtype=torch.float64, device="cuda")
+    cfg = apx.LevenbergMarquardtConfig.for_bundle_adjustment()
+    cfg.max_iterations = 10
+    cfg.collect_stats = True
+    path = os.path.join(workdir, "support_ba.npz")
+    launches = iterations = 0
+
+    def counted(label, res, launched):
+        nonlocal launches, iterations
+        launches += launched
+        iterations += res.iterations
+        if launched != res.iterations:
+            raise AssertionError(f"support_ba {label}: {launched} kernel launches for "
+                                 f"{res.iterations} LM iterations")
+
+    # (a) two solves without observers: the reference and its spread
+    plain = []
+    for k in range(2):
+        res, seconds, launched, _, _ = support_solve(cfg, cp)
+        counted(f"plain {k}", res, launched)
+        plain.append((res, seconds))
+    ref = plain[0][0]
+    ref_costs = np.array([s.cost for s in ref.iteration_stats])
+    spread = float(np.max(np.abs(np.array([s.cost for s in plain[1][0].iteration_stats])
+                                 - ref_costs) / ref_costs))
+    rtol = max(1e-10, 10 * spread)
+    plain_s = min(s for _, s in plain)
+
+    # (b) observed, (c) observed under mode="jit": python mode, no graph
+    observed = {}
+    for mode in ("python", "jit"):
+        observers = support_observers(cp, VisualizationConfig.for_bundle_adjustment(), path)
+        torch.cuda.reset_peak_memory_stats()
+        res, seconds, launched, captures, replays = support_solve(
+            dataclasses.replace(cfg, mode=mode), cp, list(observers.values()))
+        counted(mode, res, launched)
+        history = observers["history"].inner
+        if (res.iterations, res.status) != (ref.iterations, ref.status):
+            raise AssertionError(f"support_ba {mode}: {res.summary()} vs {ref.summary()}")
+        if (captures, replays) != (0, 0):
+            raise AssertionError(f"support_ba {mode}: {captures} captures, {replays} replays")
+        np.testing.assert_allclose(history.costs, ref_costs, rtol=rtol,
+                                   err_msg=f"support_ba {mode}")
+        if history.total_iterations != res.iterations:
+            raise AssertionError(f"support_ba {mode}: history completed at "
+                                 f"{history.total_iterations}")
+        observed[mode] = (res, seconds, observers)
+        ck_bytes = os.path.getsize(path)
+        sink = observers["rerun"].inner.sink
+        emit(dict(phase="support_ba", run=f"observed_{mode}", status=res.status.name,
+                  iterations=res.iterations, solve_seconds=seconds,
+                  plain_solve_seconds=[s for _, s in plain],
+                  observer_host_seconds_per_lm_iteration=(seconds - plain_s) / res.iterations,
+                  observer_hook_seconds={n: o.seconds for n, o in observers.items()},
+                  checkpoint_saves=(res.iterations - 1) // 3 + 1, checkpoint_bytes=ck_bytes,
+                  checkpoint_save_seconds_each=observers["checkpoint"].seconds
+                  / ((res.iterations - 1) // 3 + 1),
+                  sink_records=len(sink.records), graph_captures=captures, graph_replays=replays,
+                  history_cost_rtol=rtol, plain_spread=spread,
+                  max_memory_allocated=torch.cuda.max_memory_allocated(),
+                  kernel_launches=launched))
+
+    # (d) resume from the last checkpoint the observer wrote
+    t0 = time.perf_counter()
+    ck = OptimizerCheckpoint.load(path)
+    load_s = time.perf_counter() - t0
+    expected = 3 * ((ref.iterations - 1) // 3)
+    if ck.iteration != expected or ck.nu != 2.0:
+        raise AssertionError(f"support_ba: checkpoint at iteration {ck.iteration}, nu {ck.nu}; "
+                             f"expected {expected}, 2.0")
+    res, seconds, launched, _, _ = support_solve(cfg, cp, checkpoint=ck)
+    counted("resume", res, launched)
+    r0 = rmse(ref.initial_cost, ds.num_observations)
+    r1 = rmse(res.final_cost, ds.num_observations)
+    emit(dict(phase="support_ba", run="resume", from_iteration=ck.iteration,
+              checkpoint_cost=ck.cost, initial_cost=res.initial_cost,
+              rel_diff=abs(res.initial_cost - ck.cost) / ck.cost, status=res.status.name,
+              iterations=res.iterations, solve_seconds=seconds, load_seconds=load_s,
+              rmse_initial=r0, rmse_checkpoint=rmse(ck.cost, ds.num_observations),
+              rmse_final=r1, uninterrupted_rmse_final=rmse(ref.final_cost, ds.num_observations),
+              kernel_launches=launched))
+    np.testing.assert_allclose(res.initial_cost, ck.cost, rtol=1e-10, err_msg="support_ba resume")
+    if not r1 < 0.55 * r0:
+        raise AssertionError(f"support_ba resume: RMSE {r0} -> {r1} misses the 0.55x gate")
+    return launches, iterations
+
+
+class MatrixShapes:
+    """Records the shapes ``set_matrix_data`` receives."""
+
+    def __init__(self):
+        self.shapes = []
+
+    def set_matrix_data(self, hessian, gradient):
+        self.shapes.append((hessian.shape, gradient.shape, str(hessian.dtype)))
+
+    def on_step(self, *args):
+        pass
+
+    def notify_complete(self, *args):
+        pass
+
+
+def phase_support_pose_graph(sphere_problem):
+    """The sphere (sphere2500's shape) with ``expose_matrix_data``: the dense
+    H (15,000^2, 1.8 GB in f64) assembled and copied to the host each
+    iteration, into a ``RerunObserver``'s heat map."""
+    import dataclasses
+
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.observers import VisualizationConfig
+
+    cp = sphere_problem.compile(dtype=torch.float64, device="cuda")
+    cfg = apx.LevenbergMarquardtConfig(linear_solver_type="sparse_cholesky", damping="auto",
+                                       **BENCH)
+    support_solve(cfg, cp)  # the plan and the library warm-up
+    res, plain_s, _, _, _ = support_solve(cfg, cp)
+    check_costs("support_pose_graph plain", res, SPHERE_INITIAL, SPHERE_FINAL,
+                SPHERE_ITERATIONS)
+    observers = support_observers(cp, VisualizationConfig.for_pose_graph())
+    shapes = MatrixShapes()
+    torch.cuda.reset_peak_memory_stats()
+    res, seconds, _, _, _ = support_solve(dataclasses.replace(cfg, expose_matrix_data=True), cp,
+                                          [shapes, *observers.values()])
+    check_costs("support_pose_graph observed", res, SPHERE_INITIAL, SPHERE_FINAL,
+                SPHERE_ITERATIONS)
+    D = cp.total_dof
+    if shapes.shapes != [((D, D), (D,), "float64")] * res.iterations or D != SPHERE_DOF:
+        raise AssertionError(f"support_pose_graph: set_matrix_data got {shapes.shapes[:2]}...")
+    sink = observers["rerun"].inner.sink
+    images = dict(sink.by_kind("image"))
+    if images["optimization/matrices/hessian"]["shape"] != (256, 256, 3):
+        raise AssertionError(f"support_pose_graph: heat map {images}")
+    emit(dict(phase="support_pose_graph", D=D, status=res.status.name,
+              iterations=res.iterations, final_cost=res.final_cost,
+              seconds_per_lm_iteration=seconds / res.iterations,
+              plain_seconds_per_lm_iteration=plain_s / res.iterations,
+              hessian_bytes=D * D * 8, observer_hook_seconds={n: o.seconds
+                                                              for n, o in observers.items()},
+              sink_records=len(sink.records), hessian_image=images[
+                  "optimization/matrices/hessian"]["shape"],
+              max_memory_allocated=torch.cuda.max_memory_allocated()))
+
+
+def run_cli(module, argv, env, label):
+    """``python -m module argv`` in a subprocess from the repository root,
+    started through ``runpy`` so that the landmark kernel's launch count
+    is printed to stderr at exit: (stdout, launches, seconds)."""
+    code = ("import json, runpy, sys\n"
+            "from apex_tpu_torch.kernels import landmark_blocks as lb\n"
+            f"sys.argv = [{module!r}] + {argv!r}\n"
+            "try:\n"
+            f"    runpy.run_module({module!r}, run_name='__main__')\n"
+            "finally:\n"
+            "    print('LAUNCHES ' + json.dumps(lb.launches), file=sys.stderr)\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+    launches = [line for line in proc.stderr.splitlines() if line.startswith("LAUNCHES ")]
+    return proc.stdout, int(launches[-1].split()[1]), seconds
+
+
+def phase_support_cli(ds, sphere_graph, workdir):
+    """Both CLIs' ``--dataset`` from a cache of synthetic stand-ins written
+    under the registry's names (nothing is fetched), and
+    ``utils.profiling.trace`` around one sphere solve: (kernel launches, LM
+    iterations) of the BA CLI."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.io import datasets, load_g2o, save_bal, save_g2o
+    from apex_tpu_torch.utils import profiling
+
+    timer = profiling.SectionTimer()
+    cache = os.path.join(workdir, "cache")
+    env = dict(os.environ, APEX_TPU_DATA_DIR=cache)
+    os.makedirs(cache, exist_ok=True)
+    with timer.section("write_bal"):
+        save_bal(os.path.join(cache, datasets.BAL_PROBLEMS["trafalgar-257"][1].removesuffix(
+            ".bz2")), ds)
+    with timer.section("write_g2o"):
+        save_g2o(os.path.join(cache, "sphere2500.g2o"), sphere_graph)
+    with timer.section("ba_cli"):
+        out, launches, ba_s = run_cli(
+            "apex_tpu_torch.cli.bundle_adjustment",
+            ["--dataset", "trafalgar-257", "--solver", "explicit", "--platform", "cuda"], env,
+            "support_cli ba")
+    report = dict(line.strip().split(": ", 1) for line in out.splitlines() if ": " in line)
+    iterations = int(report["Iterations"])
+    r0, r1 = (float(report[k].split()[0]) for k in ("Initial RMSE", "Final RMSE"))
+    if not r1 < 0.55 * r0:
+        raise AssertionError(f"support_cli ba: RMSE {r0} -> {r1} misses the 0.55x gate")
+    if launches != iterations:
+        raise AssertionError(f"support_cli ba: {launches} kernel launches for {iterations} "
+                             "LM iterations")
+    with timer.section("pose_graph_cli"):
+        out, _, pg_s = run_cli("apex_tpu_torch.cli.pose_graph",
+                               ["--dataset", "sphere2500", "--platform", "cuda"], env,
+                               "support_cli pose_graph")
+    row = out.strip().splitlines()[-1].split()
+    # the library on the same file with the CLI's settings (the constant's
+    # solve takes damping="auto"; the CLI keeps LM's default damping)
+    cli_cfg = apx.LevenbergMarquardtConfig(linear_solver_type="sparse_cholesky",
+                                           max_iterations=100, cost_tolerance=1e-4)
+    cp = load_g2o(os.path.join(cache, "sphere2500.g2o")).to_problem().compile(device="cuda")
+    lib = apx.LevenbergMarquardt(cli_cfg).optimize(cp)
+    if (row[0], row[1], int(row[2])) != ("lm", lib.status.name, lib.iterations):
+        raise AssertionError(f"support_cli pose_graph: {row} vs {lib.summary()}")
+    np.testing.assert_allclose([float(row[3]), float(row[4])],
+                               [lib.initial_cost, lib.final_cost], rtol=5e-5)
+    np.testing.assert_allclose(float(row[3]), SPHERE_INITIAL, rtol=5e-5)
+    np.testing.assert_allclose(float(row[4]), SPHERE_FINAL, rtol=1e-3)
+    with timer.section("traced_solve"):
+        with profiling.trace(workdir, "sphere_trace.json"):
+            traced = apx.LevenbergMarquardt(cli_cfg).optimize(cp)
+            torch.cuda.synchronize()
+    trace_bytes = os.path.getsize(os.path.join(workdir, "sphere_trace.json"))
+    emit(dict(phase="support_cli", ba_cli_seconds=ba_s, ba_iterations=iterations,
+              ba_rmse_initial=r0, ba_rmse_final=r1, ba_status=report["Status"],
+              ba_kernel_launches=launches, pose_graph_cli_seconds=pg_s, pose_graph_row=row,
+              library_iterations=lib.iterations, library_final_cost=lib.final_cost,
+              traced_iterations=traced.iterations, trace_bytes=trace_bytes,
+              bal_bytes=os.path.getsize(os.path.join(cache, "problem-257-65132-pre.txt")),
+              section_timer=timer.report().splitlines()))
+    if trace_bytes <= 0 or not traced.converged:
+        raise AssertionError(f"support_cli trace: {trace_bytes} bytes, {traced.summary()}")
+    return launches, iterations
+
+
 def main():
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2220,6 +2557,25 @@ def main():
     phase_lie_full()
     phase_lie_small()
     seconds["lie"] = time.perf_counter() - t0
+    # the support path's kernel count, from 0: the observed, checkpointed and
+    # resumed BA solves in this process, then the BA CLI's in its own
+    lb.launches = 0
+    graphs.reset_counters()
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        launches_support, iterations_support = phase_support_ba(ds, ba_problem, workdir)
+        seconds["support_ba"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_support_pose_graph(sphere_problem)
+        seconds["support_pose_graph"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches_cli, iterations_cli = phase_support_cli(ds, sphere_graph, workdir)
+        seconds["support_cli"] = time.perf_counter() - t0
+    if lb.launches + graphs.kernel_launches != launches_support:
+        raise AssertionError(f"support: {lb.launches} + {graphs.kernel_launches} kernel "
+                             f"launches counted, {launches_support} summed over its solves")
+    launches_support += launches_cli
+    iterations_support += iterations_cli
     emit(dict(phase="seconds", **seconds))
 
     main_shape = measured[(65_132, torch.float64)]
@@ -2228,11 +2584,13 @@ def main():
         "route": "cuda",
         "source": "apex_tpu_torch/csrc/landmark_blocks.cu",
         "replaces": "apex_tpu/kernels/landmark_blocks.py:101",
-        "launches": launches + launches_camera,
-        "launches_per_lm_iteration": (launches + launches_camera) / (iterations
-                                                                   + iterations_camera),
+        "launches": launches + launches_camera + launches_support,
+        "launches_per_lm_iteration": (launches + launches_camera + launches_support) / (
+            iterations + iterations_camera + iterations_support),
         "launches_camera": launches_camera,
         "launches_per_lm_iteration_camera": launches_camera / iterations_camera,
+        "launches_support": launches_support,
+        "launches_per_lm_iteration_support": launches_support / iterations_support,
         "launches_jit": launches_jit,
         "launches_per_lm_iteration_jit": launches_jit / iterations_jit,
         "max_abs_err": main_shape["max_abs_err"],

@@ -190,6 +190,10 @@ def test_port_imports_no_jax():
         "import apex_tpu_torch.cameras.extended, apex_tpu_torch.manifolds.sim3\n"
         "import apex_tpu_torch.manifolds.sgal3, apex_tpu_torch.manifolds.se23\n"
         "import apex_tpu_torch.factors.base, apex_tpu_torch.cameras.pinhole\n"
+        "import apex_tpu_torch.errors, apex_tpu_torch.config, apex_tpu_torch.utils.logger\n"
+        "import apex_tpu_torch.utils.profiling, apex_tpu_torch.core.checkpoint\n"
+        "import apex_tpu_torch.observers, apex_tpu_torch.observers.visualization\n"
+        "import apex_tpu_torch.io.datasets, apex_tpu_torch.cli.download_datasets\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'apex_tpu')]\n"
         "assert not bad, bad\n"
         "import torch\n"

@@ -735,3 +735,76 @@ def test_autodiff_factor_jit_captured_on_the_card(card):
     assert (rj.iterations, rj.status) == (rh.iterations, rh.status) and rj.converged
     np.testing.assert_allclose(rj.final_cost, rh.final_cost, rtol=1e-8, atol=1e-25)
     np.testing.assert_allclose(rj.variables["xy"], [1.0, 1.0], atol=1e-6)
+
+
+def _observed_ba_solve(device, tmp_path, mode="python"):
+    """The small BA problem, exact implicit Schur, with a history, a
+    checkpoint every 3 iterations and a headless visualization observer."""
+    from apex_tpu_torch.core.checkpoint import CheckpointObserver
+    from apex_tpu_torch.observers import HistoryObserver, RerunObserver, VisualizationConfig
+    from apex_tpu_torch.observers.visualization import MemorySink
+
+    ds = synthetic.synthetic_ba(n_cameras=8, n_points=150, seed=0)
+    cp = build_ba_problem(ds).compile(dtype=torch.float64, device=device)
+    lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+        linear_solver_type="schur_implicit", max_iterations=30, pcg_forcing=False,
+        pcg_tolerance=1e-10, pcg_max_iterations=500, mode=mode))
+    h, sink = HistoryObserver(), MemorySink()
+    for obs in (h, CheckpointObserver(cp, tmp_path / f"{device}.npz", every=3),
+                RerunObserver(VisualizationConfig.for_bundle_adjustment(), sink=sink)):
+        lm.add_observer(obs)
+    return cp, lm, lm.optimize(cp), h, sink
+
+
+def test_observed_solve_card_matches_cpu(card, tmp_path):
+    """An observed LM solve on the card: the CPU's iterations and status,
+    history costs within rtol 1e-8, the same panels, one kernel launch per
+    LM iteration."""
+    before = lb.launches
+    _, _, rc, hc, sc = _observed_ba_solve(card, tmp_path)
+    assert lb.launches - before == rc.iterations
+    _, _, rh, hh, sh = _observed_ba_solve(torch.device("cpu"), tmp_path)
+    assert (rc.iterations, rc.status) == (rh.iterations, rh.status)
+    np.testing.assert_allclose(hc.costs, hh.costs, rtol=1e-8)
+    assert [(p, k) for p, k, _ in sc.records] == [(p, k) for p, k, _ in sh.records]
+
+
+def test_checkpoint_resumes_on_the_card(card, tmp_path):
+    """The checkpoint written on the card resumes on the card (under
+    ``mode="jit"``, which runs python mode) as on the CPU: the stored cost
+    recomputed (rtol 1e-10), the CPU's iterations and status, final costs
+    within rtol 1e-8, one kernel launch per LM iteration. A resume is not
+    the uninterrupted solve continued (the counter restarts at 0, nu at 2):
+    it ends within the cost tolerance (1e-6) of that solve's cost."""
+    from apex_tpu_torch.core.checkpoint import OptimizerCheckpoint
+
+    _, _, res, _, _ = _observed_ba_solve(card, tmp_path)
+    c = OptimizerCheckpoint.load(tmp_path / "cuda.npz")
+    assert c.iteration == 3 * ((res.iterations - 1) // 3)
+    cfg = dict(linear_solver_type="schur_implicit", max_iterations=30, pcg_forcing=False,
+               pcg_tolerance=1e-10, pcg_max_iterations=500)
+    problem = build_ba_problem(synthetic.synthetic_ba(n_cameras=8, n_points=150, seed=0))
+    before = lb.launches
+    rc = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(mode="jit", **cfg)).optimize(
+        problem.compile(dtype=torch.float64, device=card), checkpoint=c)
+    assert lb.launches - before == rc.iterations
+    rh = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(**cfg)).optimize(
+        problem.compile(dtype=torch.float64, device="cpu"), checkpoint=c)
+    np.testing.assert_allclose(rc.initial_cost, c.cost, rtol=1e-10)
+    assert (rc.iterations, rc.status) == (rh.iterations, rh.status) and rc.converged
+    np.testing.assert_allclose(rc.final_cost, rh.final_cost, rtol=1e-8)
+    np.testing.assert_allclose(rc.final_cost, res.final_cost, rtol=1e-6)
+
+
+def test_jit_with_observers_captures_nothing(card, tmp_path):
+    """``mode="jit"`` with observers runs python mode on the card: no graph
+    captured or replayed, and python mode's result."""
+    from apex_tpu_torch.optim import graphs
+
+    graphs.reset_counters()
+    _, lm, rj, hj, _ = _observed_ba_solve(card, tmp_path, mode="jit")
+    assert (graphs.captures, graphs.replays, graphs.graphs) == (0, 0, 0)
+    assert not lm._jit_cache
+    _, _, rp, hp, _ = _observed_ba_solve(card, tmp_path)
+    assert (rj.iterations, rj.status) == (rp.iterations, rp.status)
+    np.testing.assert_allclose(hj.costs, hp.costs, rtol=1e-10)

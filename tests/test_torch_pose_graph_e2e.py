@@ -162,18 +162,27 @@ def test_cli_module_runs_with_profile():
     (["--synthetic", "sphere", "--optimizer", "gn", "--jit", "--linear-solver", "sparse_qr"],
      None),
     (["--synthetic", "sphere", "--optimizer", "dl", "--jit"], None),
-    (["--dataset", "sphere2500"], "ROADMAP A.10"),
+    # the registry is ported (ROADMAP A.10a): a name that is not cached is
+    # downloaded, and with downloads refused that is a ConnectionError
+    (["--dataset", "sphere2500"], "failed to download"),
     (["--synthetic", "sphere", "--jit", "--linear-solver", "pcg"], None),
 ], ids=["gn", "dl", "dataset", "jit"])
-def test_cli_not_ported_paths_raise(argv, match, capsys):
+def test_cli_not_ported_paths_raise(argv, match, capsys, tmp_path, monkeypatch):
+    import urllib.request
+
     from apex_tpu_torch.cli.pose_graph import main
 
+    def refuse(url, *args, **kwargs):
+        raise OSError("network disabled in tests")
+
+    monkeypatch.setattr(urllib.request, "urlopen", refuse)
+    monkeypatch.setenv("APEX_TPU_DATA_DIR", str(tmp_path))
     argv = argv + ["--poses", "100", "--platform", "cpu"]
     if match is None:
         assert main(argv) == 0
         assert "COST_TOLERANCE_REACHED" in capsys.readouterr().out
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ConnectionError, match=match):
         main(argv)
 
 
@@ -325,6 +334,11 @@ def test_port_imports_no_jax():
         "import apex_tpu_torch.cameras.extended, apex_tpu_torch.manifolds.sim3\n"
         "import apex_tpu_torch.manifolds.sgal3, apex_tpu_torch.manifolds.se23\n"
         "import apex_tpu_torch.factors.base\n"
+        "import apex_tpu_torch.errors, apex_tpu_torch.config, apex_tpu_torch.utils.logger\n"
+        "import apex_tpu_torch.utils.profiling, apex_tpu_torch.core.checkpoint\n"
+        "import apex_tpu_torch.observers.base, apex_tpu_torch.observers.visualization\n"
+        "import apex_tpu_torch.io.datasets, apex_tpu_torch.cli.download_datasets\n"
+        "import apex_tpu_torch.linalg.utils\n"
         "g = apex_tpu_torch.io.synthetic.synthetic_pose_graph_2d(20).to_problem(fix_first=True)\n"
         "for solver in ('sparse_qr', 'pcg'):\n"
         "    apex_tpu_torch.DogLeg(apex_tpu_torch.DogLegConfig()).optimize(\n"
@@ -337,6 +351,11 @@ def test_port_imports_no_jax():
         "    linear_solver_type='sparse_general')).optimize(apex_tpu_torch.io.synthetic\n"
         "    .synthetic_pose_graph_grid3d(3, 3, 2).to_problem().compile(device='cpu'))\n"
         "apex_tpu_torch.io.synthetic.synthetic_pose_graph_2d(40).to_problem()\n"
+        "lm = apex_tpu_torch.LevenbergMarquardt(apex_tpu_torch.LevenbergMarquardtConfig(\n"
+        "    expose_matrix_data=True))\n"
+        "lm.add_observer(apex_tpu_torch.observers.RerunObserver(\n"
+        "    sink=apex_tpu_torch.observers.visualization.MemorySink()))\n"
+        "lm.optimize(g.compile(device='cpu'))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'apex_tpu')]\n"
         "assert not bad, bad\n"
     )
