@@ -21,7 +21,13 @@ python loop mode:
   visualization observer with its headless sink), checkpoint / resume
   (``core.checkpoint``, ``optimize(..., checkpoint=)``), the error
   hierarchy (``errors``), ``config``, ``utils`` (logger, profiling), the
-  dataset registry (``io.datasets``, behind both CLIs' ``--dataset``).
+  dataset registry (``io.datasets``, behind both CLIs' ``--dataset``);
+- the host-side ROS2 layers: bags (``io.rosbag``: sqlite3 and MCAP
+  storage, the CDR codec and message registry, metadata.yaml; the JAX
+  package's bytes), DDS subscription (``io.dds``) and ``cli.bag_tools``;
+- the JAX package's eight single-device example scripts, as
+  ``apex_tpu_torch.examples`` (``python -m
+  apex_tpu_torch.examples.compare_solvers [--platform cpu]``).
 
 The dtype (f64 by default) and the device (``"cuda"`` by default) are
 arguments of ``Problem.compile(dtype=..., device=...)``; ``"cuda"`` without a

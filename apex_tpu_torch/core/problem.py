@@ -473,11 +473,15 @@ class CompiledProblem:
         return tuple(p.values0 for p in self.pools)
 
     def values_dict(self, values) -> Dict[str, np.ndarray]:
-        """{name: host storage vector}: one copy to the host per pool, each
-        vector a view of its pool's row."""
+        """{name: host storage vector}: one read-only host copy per pool,
+        each vector a view of its pool's row, as the JAX package hands out
+        (a write raises ``ValueError``). The copy is made on the CPU too, so
+        no array aliases a solver's pool tensor."""
         out = {}
         for p, arr in zip(self.pools, values):
-            out.update(zip(p.names, arr.detach().cpu().numpy()))
+            host = arr.detach().to("cpu", copy=True).numpy()
+            host.setflags(write=False)
+            out.update(zip(p.names, host))
         return out
 
     def get_value(self, values, name: str) -> torch.Tensor:

@@ -123,7 +123,7 @@ def se3_camera_pose(value7: np.ndarray, invert: bool) -> Tuple[np.ndarray, np.nd
     (BA convention) to the camera-in-world frame the viewer expects."""
     v = np.asarray(value7, dtype=np.float64)
     if invert:
-        v = se3.inverse(torch.from_numpy(v)).numpy()
+        v = se3.inverse(torch.tensor(v)).numpy()  # a copy: ``v`` may be read-only
     pos = v[:3]
     qw, qx, qy, qz = v[3], v[4], v[5], v[6]  # storage is w-first
     return pos, np.array([qx, qy, qz, qw])  # rerun wants xyzw

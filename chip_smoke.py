@@ -6,7 +6,9 @@ the general-sparsity tier), lens self-calibration through the 8 camera
 models, and pose graphs on the extended Lie groups once on one CUDA card,
 in python mode and in ``mode="jit"`` (replayed CUDA graphs; phases 19-28),
 then the solver's support surface: observers, checkpoint / resume and the
-CLIs' ``--dataset`` (phases 29-31).
+CLIs' ``--dataset`` (phases 29-31), and last the ported examples and a
+mobile robot's ROS2 recording through the bag and DDS layers (phases
+32-33).
 
 Run from the repository root: ``python3 chip_smoke.py``. Phases, in order,
 each printing one JSON line; any failure raises and exits non-zero:
@@ -171,13 +173,30 @@ each printing one JSON line; any failure raises and exits non-zero:
     explicit`` (exit 0, the RMSE gate, one kernel launch per LM iteration)
     and ``python -m apex_tpu_torch.cli.pose_graph --dataset sphere2500``
     (exit 0, the library's solve of the same file, the sphere's constants),
-    and one sphere solve under ``utils.profiling.trace``.
+    and one sphere solve under ``utils.profiling.trace``;
+32. examples: the eight ported examples (``apex_tpu_torch.examples``) in
+    one subprocess on the card (their default platform) and one with
+    ``--platform cpu``, each example's ``main`` in turn: exit 0, the card's
+    rows equal the CPU's (status and iterations, and every value within
+    rtol 1e-8), and in ``compare_solvers`` one landmark-kernel launch per LM
+    iteration of the two Schur rows and none in the dense rows (counted
+    per solve); prints each example's seconds on both devices;
+33. bags: a 10-minute recording of a mobile robot (/imu at 200 Hz, /odom at
+    50 Hz, /tf at 100 Hz, /scan at 40 Hz with 1,081 beams: 234,000
+    messages, 275.6 MB of CDR) written through the port's ``Writer``
+    as sqlite3, MCAP and MCAP with zlib chunks, one process per storage at
+    once, each read back whole and held to the recording (float64 fields
+    exact, float32 fields at their float32 rounding) with its
+    ``metadata.yaml`` counts; then ``bag_tools`` info, filter and extract
+    (30,000 CSV rows) and a replay of /odom through ``LoopbackTransport``
+    into a ``DdsListener``. Prints per storage the write and read seconds,
+    messages/s, MB/s and file bytes, with the host's CPU model.
 
 The pose-graph paths launch no kernel of the port's own (the TPU reference
 ran them in XLA, outside Pallas): the landmark-block kernel, the one hand
 kernel, runs on the BA paths only (the BAL and the self-calibration ones).
-Then the kernel summary line (the python-mode, camera and support launches,
-the jit BA launches, each per LM iteration), and last
+Then the kernel summary line (the python-mode, camera, support and examples
+launches, the jit BA launches, each per LM iteration), and last
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without one.
 """
@@ -2478,6 +2497,432 @@ def phase_support_cli(ds, sphere_graph, workdir):
     return launches, iterations
 
 
+EXAMPLES = ("compare_solvers", "compare_optimizers", "covariance_estimation", "custom_factor",
+            "load_graph_file", "loss_function_comparison", "visualize_graph_file",
+            "visualize_optimization")
+EXAMPLE_GRAPHS = ("load_graph_file", "visualize_graph_file")
+
+
+def run_examples(argv, workdir, label):
+    """The eight examples in one subprocess (``main(argv)`` of each, in
+    ``workdir``), with ``LevenbergMarquardt.optimize`` wrapped to count the
+    landmark kernel's launches per solve: {name: {rows, solves [[launches,
+    iterations], ...], seconds}} and the process's whole launch count, both
+    printed to stderr at exit."""
+    code = (
+        "import json, sys, time\n"
+        "import numpy as np\n"
+        "import apex_tpu_torch as apx\n"
+        "from apex_tpu_torch.kernels import landmark_blocks as lb\n"
+        "optimize = apx.LevenbergMarquardt.optimize\n"
+        "solves = []\n"
+        "def counted(self, *a, **kw):\n"
+        "    before = lb.launches\n"
+        "    res = optimize(self, *a, **kw)\n"
+        "    solves.append([lb.launches - before, res.iterations])\n"
+        "    return res\n"
+        "apx.LevenbergMarquardt.optimize = counted\n"
+        "out = {}\n"
+        f"for name in {EXAMPLES!r}:\n"
+        "    example = __import__('apex_tpu_torch.examples.' + name, fromlist=['main'])\n"
+        f"    args = (['{workdir}/' + name + '.g2o'] if name in {EXAMPLE_GRAPHS!r} else [])\n"
+        "    solves.clear()\n"
+        "    t0 = time.perf_counter()\n"
+        f"    rows = example.main(args + {argv!r})\n"
+        "    out[name] = dict(rows=rows, solves=list(solves), seconds=time.perf_counter() - t0)\n"
+        "print('EXAMPLES ' + json.dumps(dict(examples=out, launches=lb.launches),\n"
+        "                               default=lambda x: np.asarray(x).tolist()),\n"
+        "      file=sys.stderr)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=workdir, env=env,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+    line = [s for s in proc.stderr.splitlines() if s.startswith("EXAMPLES ")][-1]
+    return json.loads(line.split(" ", 1)[1]), proc.stdout, seconds
+
+
+def same_rows(a, b, where):
+    """Rows of two runs equal: strings and ints exactly, floats within rtol
+    1e-8 (f64), the ``seconds`` column aside."""
+    import math
+
+    if isinstance(a, dict):
+        if sorted(a) != sorted(b):
+            raise AssertionError(f"{where}: keys {sorted(a)} vs {sorted(b)}")
+        for k in a:
+            if k != "seconds":
+                same_rows(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, list):
+        if len(a) != len(b):
+            raise AssertionError(f"{where}: {len(a)} vs {len(b)} entries")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_rows(x, y, f"{where}[{i}]")
+    elif isinstance(a, float) or isinstance(b, float):
+        if not math.isclose(a, b, rel_tol=1e-8, abs_tol=1e-300):
+            raise AssertionError(f"{where}: {a!r} vs {b!r} (rtol 1e-8)")
+    elif a != b:
+        raise AssertionError(f"{where}: {a!r} vs {b!r}")
+
+
+def phase_examples(workdir):
+    """Phase 32: the eight ported examples as a user runs them, once on the
+    card (their default platform) and once with ``--platform cpu``, each
+    device in its own process: exit 0, the card's rows equal the CPU's,
+    and in ``compare_solvers`` one landmark-kernel launch per LM iteration
+    of the two Schur rows and none in the dense rows. Returns (kernel
+    launches, LM iterations of the Schur rows) of the card's process."""
+    from apex_tpu_torch.io import save_g2o, synthetic
+
+    save_g2o(os.path.join(workdir, "load_graph_file.g2o"),
+             synthetic.synthetic_pose_graph_2d(n_poses=100, seed=7))
+    save_g2o(os.path.join(workdir, "visualize_graph_file.g2o"),
+             synthetic.synthetic_pose_graph_3d(n_poses=150, rings=6))
+    card, card_out, card_s = run_examples([], workdir, "examples cuda")
+    cpu, _, cpu_s = run_examples(["--platform", "cpu"], workdir, "examples cpu")
+    for name in EXAMPLES:
+        same_rows(card["examples"][name]["rows"], cpu["examples"][name]["rows"], name)
+    if cpu["launches"] != 0 or any(s[0] for e in cpu["examples"].values()
+                                   for s in e["solves"]):
+        raise AssertionError(f"examples cpu: {cpu['launches']} kernel launches on the CPU")
+    cs = card["examples"]["compare_solvers"]
+    solvers = [r["solver"] for r in cs["rows"]]
+    want = [0 if s.startswith("dense") else r["iterations"] for s, r in zip(solvers, cs["rows"])]
+    if [s[0] for s in cs["solves"]] != want or card["launches"] != sum(want) or not all(want[2:]):
+        raise AssertionError(f"examples compare_solvers: launches {cs['solves']} per solve, "
+                             f"{card['launches']} in all, for the rows' iterations {want}")
+    others = sum(s[0] for n, e in card["examples"].items() if n != "compare_solvers"
+                 for s in e["solves"])
+    if others:
+        raise AssertionError(f"examples: {others} kernel launches outside compare_solvers")
+    emit(dict(phase="examples", process_seconds={"cuda": card_s, "cpu": cpu_s},
+              seconds={name: {"cuda": card["examples"][name]["seconds"],
+                              "cpu": cpu["examples"][name]["seconds"]} for name in EXAMPLES},
+              compare_solvers=[dict(solver=r["solver"], status=r["status"],
+                                    iterations=r["iterations"], final_cost=r["final_cost"],
+                                    rmse=r["rmse"], launches=s[0], cuda_seconds=r["seconds"],
+                                    cpu_seconds=c["seconds"])
+                               for r, s, c in zip(cs["rows"], cs["solves"],
+                                                  cpu["examples"]["compare_solvers"]["rows"])],
+              kernel_launches=card["launches"], stdout_lines=len(card_out.splitlines())))
+    return card["launches"], sum(want[2:])
+
+
+# the recording of phase 33: (topic, type, rate in Hz, phase offset in ms)
+BAG_TOPICS = (("/imu", "sensor_msgs/msg/Imu", 200, 0),
+              ("/odom", "nav_msgs/msg/Odometry", 50, 1),
+              ("/tf", "tf2_msgs/msg/TFMessage", 100, 2),
+              ("/scan", "sensor_msgs/msg/LaserScan", 40, 3))
+BAG_T0_NS = 1_700_000_000 * 10**9
+SCAN_BEAMS = 1081  # a Hokuyo UTM-30LX: 270 degrees at 0.25 degrees
+
+
+class Recording:
+    """A mobile robot's recording, drawn from numpy generators of one seed:
+    an IMU at 200 Hz, wheel odometry at 50 Hz, odom -> base_link on /tf at
+    100 Hz and a 1,081-beam laser scanner at 40 Hz. Each message is built
+    on demand from the arrays, as written (``message``) or as it reads back
+    (``expected``: float32 fields at their float32 rounding). Each topic's
+    stamps sit on its own millisecond phase, so no two messages share a
+    timestamp and every storage gives one order."""
+
+    def __init__(self, seconds, seed=0):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        self.n = {topic: int(seconds * rate) for topic, _, rate, _ in BAG_TOPICS}
+        self.period_ns = {topic: 10**9 // rate for topic, _, rate, _ in BAG_TOPICS}
+        self.offset_ns = {topic: ms * 10**6 for topic, _, _, ms in BAG_TOPICS}
+        n_imu, n_odom = self.n["/imu"], self.n["/odom"]
+        self.imu_rpy = np.cumsum(rng.normal(0, 1e-3, (n_imu, 3)), axis=0)
+        self.imu_gyro = rng.normal(0, 0.05, (n_imu, 3))
+        self.imu_acc = rng.normal(0, 0.2, (n_imu, 3)) + [0.0, 0.0, 9.80665]
+        heading = np.cumsum(rng.normal(0, 0.01, n_odom))
+        speed = 1.0 + 0.2 * np.sin(np.arange(n_odom) / 500.0)
+        self.odom_xy = np.cumsum(np.stack([speed * np.cos(heading),
+                                           speed * np.sin(heading)], axis=1) / 50.0, axis=0)
+        self.odom_yaw = heading
+        self.odom_twist = np.stack([speed, rng.normal(0, 0.01, n_odom)], axis=1)
+        self.odom_cov = np.diag([1e-3, 1e-3, 1e6, 1e6, 1e6, 3e-3]).ravel().tolist()
+        n_tf = self.n["/tf"]
+        self.tf_xyz = rng.normal(0, 1.0, (n_tf, 3))
+        self.tf_yaw = rng.uniform(-np.pi, np.pi, n_tf)
+        n_scan = self.n["/scan"]
+        self.ranges = rng.uniform(0.1, 30.0, (n_scan, SCAN_BEAMS))
+        self.intensities = rng.uniform(0.0, 8000.0, (n_scan, SCAN_BEAMS))
+
+    @property
+    def count(self):
+        return sum(self.n.values())
+
+    def stamp(self, topic, i):
+        return BAG_T0_NS + self.offset_ns[topic] + i * self.period_ns[topic]
+
+    def order(self):
+        """(timestamp, topic, index) of every message, in time order."""
+        return sorted((self.stamp(topic, i), topic, i)
+                      for topic, _, _, _ in BAG_TOPICS for i in range(self.n[topic]))
+
+    def index(self, topic, t_ns):
+        i, rem = divmod(t_ns - BAG_T0_NS - self.offset_ns[topic], self.period_ns[topic])
+        if rem or not 0 <= i < self.n[topic]:
+            raise AssertionError(f"bags: {topic} stamp {t_ns} is not one of the recording's")
+        return i
+
+    @staticmethod
+    def _header(t_ns, frame):
+        return {"stamp": {"sec": t_ns // 10**9, "nanosec": t_ns % 10**9}, "frame_id": frame}
+
+    @staticmethod
+    def _quat(roll, pitch, yaw):
+        import math
+
+        cr, sr = math.cos(roll / 2), math.sin(roll / 2)
+        cp, sp = math.cos(pitch / 2), math.sin(pitch / 2)
+        cy, sy = math.cos(yaw / 2), math.sin(yaw / 2)
+        return {"x": sr * cp * cy - cr * sp * sy, "y": cr * sp * cy + sr * cp * sy,
+                "z": cr * cp * sy - sr * sp * cy, "w": cr * cp * cy + sr * sp * sy}
+
+    def message(self, topic, i, f32=float):
+        t = self.stamp(topic, i)
+        if topic == "/imu":
+            g, a = self.imu_gyro[i].tolist(), self.imu_acc[i].tolist()
+            return {"header": self._header(t, "imu_link"),
+                    "orientation": self._quat(*self.imu_rpy[i].tolist()),
+                    "orientation_covariance": [1e-4, 0.0, 0.0, 0.0, 1e-4, 0.0, 0.0, 0.0, 1e-4],
+                    "angular_velocity": {"x": g[0], "y": g[1], "z": g[2]},
+                    "angular_velocity_covariance": [2.5e-5, 0.0, 0.0, 0.0, 2.5e-5, 0.0, 0.0,
+                                                    0.0, 2.5e-5],
+                    "linear_acceleration": {"x": a[0], "y": a[1], "z": a[2]},
+                    "linear_acceleration_covariance": [0.04, 0.0, 0.0, 0.0, 0.04, 0.0, 0.0,
+                                                       0.0, 0.04]}
+        if topic == "/odom":
+            x, y = self.odom_xy[i].tolist()
+            v, w = self.odom_twist[i].tolist()
+            return {"header": self._header(t, "odom"), "child_frame_id": "base_link",
+                    "pose": {"pose": {"position": {"x": x, "y": y, "z": 0.0},
+                                      "orientation": self._quat(0.0, 0.0, float(
+                                          self.odom_yaw[i]))},
+                             "covariance": self.odom_cov},
+                    "twist": {"twist": {"linear": {"x": v, "y": 0.0, "z": 0.0},
+                                        "angular": {"x": 0.0, "y": 0.0, "z": w}},
+                              "covariance": self.odom_cov}}
+        if topic == "/tf":
+            x, y, z = self.tf_xyz[i].tolist()
+            return {"transforms": [{
+                "header": self._header(t, "odom"), "child_frame_id": "base_link",
+                "transform": {"translation": {"x": x, "y": y, "z": z},
+                              "rotation": self._quat(0.0, 0.0, float(self.tf_yaw[i]))}}]}
+        if f32 is float:
+            ranges, intensities = self.ranges[i].tolist(), self.intensities[i].tolist()
+        else:
+            ranges = self.ranges[i].astype(f32).tolist()
+            intensities = self.intensities[i].astype(f32).tolist()
+        rnd = (lambda v: v) if f32 is float else (lambda v: float(f32(v)))
+        return {"header": self._header(t, "laser"),
+                "angle_min": rnd(-2.356194490192345), "angle_max": rnd(2.356194490192345),
+                "angle_increment": rnd(0.004363323129985824),
+                "time_increment": rnd(1.7361111111111112e-05), "scan_time": rnd(0.025),
+                "range_min": rnd(0.1), "range_max": rnd(30.0),
+                "ranges": ranges, "intensities": intensities}
+
+    def expected(self, topic, i):
+        import numpy as np
+
+        return self.message(topic, i, f32=np.float32)
+
+
+def host_cpu():
+    """The host's CPU model, as ``lscpu`` names it (or ``/proc/cpuinfo``)."""
+    import platform
+    import shutil
+
+    lscpu = (subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+             if shutil.which("lscpu") else "")
+    names = [line.split(":", 1)[1].strip() for line in lscpu.splitlines()
+             if line.startswith(("Model name", "Vendor ID"))]
+    if not names and os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            names = [line.split(":", 1)[1].strip() for line in f
+                     if line.startswith("model name")][:1]
+    return " / ".join(names) or platform.machine()
+
+
+def check_bag(rec, bag, label):
+    """Every message of ``bag`` read back (decoded, in time order) equals
+    the recording's, each once: (seconds in the reader: opening the bag and
+    yielding decoded messages, the check aside; CDR bytes)."""
+    from apex_tpu_torch.io.rosbag import Reader
+
+    seen = {topic: 0 for topic in rec.n}
+    t0 = time.perf_counter()
+    with Reader(bag) as r:
+        messages = r.messages()
+        seconds = time.perf_counter() - t0
+        last = -1
+        while True:
+            t0 = time.perf_counter()
+            item = next(messages, None)
+            seconds += time.perf_counter() - t0
+            if item is None:
+                break
+            topic, _, ts, msg = item
+            if ts <= last:
+                raise AssertionError(f"{label}: messages out of time order at {ts}")
+            last = ts
+            if msg != rec.expected(topic, rec.index(topic, ts)):
+                raise AssertionError(f"{label}: {topic} at {ts} differs from the recording")
+            seen[topic] += 1
+    if seen != rec.n:
+        raise AssertionError(f"{label}: read {seen}, wrote {rec.n}")
+    with Reader(bag) as r:
+        nbytes = sum(len(raw) for _, _, _, raw in r.messages(decode=False))
+    return seconds, nbytes
+
+
+BAG_STORAGES = {"sqlite3": ("sqlite3", None), "mcap": ("mcap", None),
+                "mcap_zlib": ("mcap", "zlib")}
+
+
+def bag_storage(workdir, name, seconds, seed):
+    """One storage of phase 33, in a process of its own: the recording
+    written through the port's ``Writer``, its ``metadata.yaml`` read back
+    through the port's reader, and every message read back and held to the
+    recording. Prints one JSON line of timings."""
+    from apex_tpu_torch.io.rosbag import Writer, read_metadata
+
+    storage, compression = BAG_STORAGES[name]
+    rec = Recording(seconds, seed)
+    order = rec.order()
+    bag = os.path.join(workdir, f"bag_{name}")
+    t0 = time.perf_counter()
+    with Writer(bag, storage=storage, compression=compression) as w:
+        for topic, type_name, _, _ in BAG_TOPICS:
+            w.add_topic(topic, type_name)
+        for ts, topic, i in order:
+            w.write(topic, ts, rec.message(topic, i))
+    write_s = time.perf_counter() - t0
+    meta = read_metadata(bag)
+    counts = {t["topic_metadata"]["name"]: t["message_count"]
+              for t in meta["topics_with_message_count"]}
+    if (meta["message_count"], counts, meta["storage_identifier"],
+            meta["starting_time"]["nanoseconds_since_epoch"], meta["duration"]["nanoseconds"]) != (
+                rec.count, rec.n, storage, order[0][0], order[-1][0] - order[0][0]):
+        raise AssertionError(f"bags {name}: metadata.yaml {meta}")
+    read_s, nbytes = check_bag(rec, bag, f"bags {name}")
+    file_bytes = sum(os.path.getsize(os.path.join(bag, f)) for f in os.listdir(bag))
+    print(json.dumps(dict(write_seconds=write_s, read_seconds=read_s,
+                          write_messages_per_s=rec.count / write_s,
+                          read_messages_per_s=rec.count / read_s,
+                          write_mb_per_s=nbytes / write_s / 1e6,
+                          read_mb_per_s=nbytes / read_s / 1e6,
+                          cdr_bytes=nbytes, file_bytes=file_bytes)), flush=True)
+
+
+def phase_bags(workdir, seconds=600.0, seed=0):
+    """Phase 33: a ``seconds``-long recording (234,000 messages, about
+    0.28 GB of CDR at 600 s) written through the port's ``Writer`` as
+    sqlite3, MCAP and MCAP with zlib chunks, one process per storage, all
+    three at once (``bag_storage``); then, on the sqlite3 bag, ``bag_tools``
+    info, filter (/odom and /tf) and extract (/odom), and a replay of /odom
+    through ``LoopbackTransport`` into a ``DdsListener``, each held to the
+    recording. Host work only."""
+    import contextlib
+    import csv
+    import io
+
+    from apex_tpu_torch.cli import bag_tools
+    from apex_tpu_torch.io.dds import DdsListener, LoopbackTransport
+    from apex_tpu_torch.io.rosbag import Reader
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke\n"
+         "chip_smoke.bag_storage(sys.argv[1], sys.argv[2], float(sys.argv[3]), int(sys.argv[4]))",
+         workdir, name, repr(seconds), str(seed)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in BAG_STORAGES}
+    per_storage = {}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"bags {name}: exit {proc.returncode}\n{out}\n{err}")
+            per_storage[name] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    storages_s = time.perf_counter() - t0
+    rec = Recording(seconds, seed)
+
+    bag = os.path.join(workdir, "bag_sqlite3")
+    tools = {}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        if bag_tools.main(["info", bag]) != 0:
+            raise AssertionError("bags: bag_tools info failed")
+    tools["info_seconds"] = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    for topic, type_name, _, _ in BAG_TOPICS:
+        want = f"  {topic:<30} {type_name:<40} {rec.n[topic]:>8} msgs [cdr]"
+        if want not in lines:
+            raise AssertionError(f"bags: info misses {want!r}:\n{out.getvalue()}")
+    if f"messages: {rec.count}" not in lines or "storage: sqlite3" not in lines:
+        raise AssertionError(f"bags: info\n{out.getvalue()}")
+    filtered = os.path.join(workdir, "bag_filtered")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        bag_tools.main(["filter", bag, filtered, "--topics", "/odom", "/tf"])
+    tools["filter_seconds"] = time.perf_counter() - t0
+    with Reader(bag) as r:
+        kept = list(r.messages(topics=["/odom", "/tf"], decode=False))
+    with Reader(filtered) as r:
+        if list(r.messages(decode=False)) != kept or len(kept) != rec.n["/odom"] + rec.n["/tf"]:
+            raise AssertionError("bags: the filtered bag is not the source's /odom and /tf")
+    table = os.path.join(workdir, "odom.csv")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        bag_tools.main(["extract", bag, "--topic", "/odom", "--out", table])
+    tools["extract_seconds"] = time.perf_counter() - t0
+    with open(table, newline="") as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != rec.n["/odom"]:
+        raise AssertionError(f"bags: extract wrote {len(rows)} rows")
+    for i, row in enumerate(rows):
+        msg = rec.message("/odom", i)
+        if (int(row["timestamp_ns"]) != rec.stamp("/odom", i)
+                or float(row["pose.pose.position.x"]) != msg["pose"]["pose"]["position"]["x"]
+                or float(row["twist.twist.angular.z"]) != msg["twist"]["twist"]["angular"]["z"]):
+            raise AssertionError(f"bags: extract row {i} {row}")
+    tools["extract_rows"] = len(rows)
+
+    bus = LoopbackTransport()
+    listener = DdsListener(transport=bus)
+    got = []
+    listener.subscribe("/odom", "nav_msgs/msg/Odometry", lambda t, m: got.append(m))
+    t0 = time.perf_counter()
+    with Reader(bag) as r:
+        for _, type_name, _, raw in r.messages(topics=["/odom"], decode=False):
+            bus.publish("/odom", type_name, raw[4:])  # a DDS stack strips the header
+    dds_s = time.perf_counter() - t0
+    if len(got) != rec.n["/odom"] or any(m != rec.expected("/odom", i)
+                                        for i, m in enumerate(got)):
+        raise AssertionError(f"bags: DDS delivered {len(got)} of {rec.n['/odom']} /odom "
+                             "messages, or one differs")
+    if listener.subscriptions["rt/odom"]["received"] != rec.n["/odom"]:
+        raise AssertionError("bags: the listener's count")
+    emit(dict(phase="bags", recording_seconds=seconds, messages=rec.count, per_topic=rec.n,
+              host_cpu=host_cpu(), cpu_count=os.cpu_count(), storages=per_storage,
+              storages_wall_seconds=storages_s, bag_tools=tools, dds_seconds=dds_s,
+              dds_messages_per_s=len(got) / dds_s))
+
+
 def main():
     import tempfile
 
@@ -2576,6 +3021,17 @@ def main():
                              f"launches counted, {launches_support} summed over its solves")
     launches_support += launches_cli
     iterations_support += iterations_cli
+    # the examples' kernel count: from 0 in the card's process of phase 32
+    launches_before = lb.launches
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        launches_examples, iterations_examples = phase_examples(workdir)
+        seconds["examples"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_bags(workdir)
+        seconds["bags"] = time.perf_counter() - t0
+    if lb.launches != launches_before:
+        raise AssertionError("examples / bags: kernel launches in the smoke's own process")
     emit(dict(phase="seconds", **seconds))
 
     main_shape = measured[(65_132, torch.float64)]
@@ -2584,13 +3040,16 @@ def main():
         "route": "cuda",
         "source": "apex_tpu_torch/csrc/landmark_blocks.cu",
         "replaces": "apex_tpu/kernels/landmark_blocks.py:101",
-        "launches": launches + launches_camera + launches_support,
-        "launches_per_lm_iteration": (launches + launches_camera + launches_support) / (
-            iterations + iterations_camera + iterations_support),
+        "launches": launches + launches_camera + launches_support + launches_examples,
+        "launches_per_lm_iteration": (
+            launches + launches_camera + launches_support + launches_examples) / (
+            iterations + iterations_camera + iterations_support + iterations_examples),
         "launches_camera": launches_camera,
         "launches_per_lm_iteration_camera": launches_camera / iterations_camera,
         "launches_support": launches_support,
         "launches_per_lm_iteration_support": launches_support / iterations_support,
+        "launches_examples": launches_examples,
+        "launches_per_lm_iteration_examples": launches_examples / iterations_examples,
         "launches_jit": launches_jit,
         "launches_per_lm_iteration_jit": launches_jit / iterations_jit,
         "max_abs_err": main_shape["max_abs_err"],

@@ -194,6 +194,13 @@ def test_port_imports_no_jax():
         "import apex_tpu_torch.utils.profiling, apex_tpu_torch.core.checkpoint\n"
         "import apex_tpu_torch.observers, apex_tpu_torch.observers.visualization\n"
         "import apex_tpu_torch.io.datasets, apex_tpu_torch.cli.download_datasets\n"
+        "import apex_tpu_torch.io.rosbag, apex_tpu_torch.io.dds, apex_tpu_torch.cli.bag_tools\n"
+        "import apex_tpu_torch.examples.compare_solvers, apex_tpu_torch.examples.compare_optimizers\n"
+        "import apex_tpu_torch.examples.covariance_estimation, apex_tpu_torch.examples.custom_factor\n"
+        "import apex_tpu_torch.examples.load_graph_file\n"
+        "import apex_tpu_torch.examples.loss_function_comparison\n"
+        "import apex_tpu_torch.examples.visualize_graph_file\n"
+        "import apex_tpu_torch.examples.visualize_optimization\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'apex_tpu')]\n"
         "assert not bad, bad\n"
         "import torch\n"

@@ -808,3 +808,32 @@ def test_jit_with_observers_captures_nothing(card, tmp_path):
     _, _, rp, hp, _ = _observed_ba_solve(card, tmp_path)
     assert (rj.iterations, rj.status) == (rp.iterations, rp.status)
     np.testing.assert_allclose(hj.costs, hp.costs, rtol=1e-10)
+
+
+def test_compare_solvers_example_on_the_card(card, monkeypatch):
+    """``examples.compare_solvers`` on the card (its default platform): one
+    landmark-kernel launch per LM iteration of the two Schur rows, none in
+    the dense rows, and the rows of ``--platform cpu`` (iterations and
+    status equal, costs and RMSE within rtol 1e-8)."""
+    from apex_tpu_torch.examples import compare_solvers
+
+    launches = []
+    optimize = apx.LevenbergMarquardt.optimize
+
+    def counted(self, *a, **kw):
+        before = lb.launches
+        res = optimize(self, *a, **kw)
+        launches.append(lb.launches - before)
+        return res
+
+    monkeypatch.setattr(apx.LevenbergMarquardt, "optimize", counted)
+    rows = compare_solvers.main([])
+    cpu = compare_solvers.main(["--platform", "cpu"])
+    assert launches[4:] == [0, 0, 0, 0]
+    assert launches[:4] == [0 if r["solver"].startswith("dense") else r["iterations"] for r in rows]
+    assert launches[2] > 0 and launches[3] > 0
+    for r, c in zip(rows, cpu, strict=True):
+        assert (r["solver"], r["status"], r["iterations"]) == (
+            c["solver"], c["status"], c["iterations"])
+        np.testing.assert_allclose([r["final_cost"], r["rmse"]], [c["final_cost"], c["rmse"]],
+                                   rtol=1e-8)

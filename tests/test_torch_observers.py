@@ -4,7 +4,8 @@ helpers, ``HistoryObserver``'s records for LM, Gauss-Newton and DogLeg,
 ``RerunObserver``'s records through a headless sink on an SE3 pose graph,
 a small bundle adjustment and an SE2 graph with ``expose_matrix_data``
 (what ``tests/test_observers.py`` and ``test_misc.py`` cover in the JAX
-package), ``mode="jit"`` with an observer, and the ``RerunSink`` gate.
+package), ``mode="jit"`` with an observer, the ``RerunSink`` gate, and the
+read-only host arrays that both packages hand out (ROADMAP C.1).
 
 Each JAX solve runs once per module (``jax_runs``)."""
 
@@ -301,3 +302,65 @@ def test_rerun_sink_needs_rerun():
         vis.RerunSink("apex_tpu", False, None)
     with pytest.raises(ImportError, match="rerun"):
         apx.observers.RerunObserver()
+
+
+class _Writer:
+    """An observer that tries to write into every dict it is handed and
+    keeps the error each write raised."""
+
+    def __init__(self):
+        self.errors = []
+
+    def _write(self, variables):
+        for v in variables.values():
+            try:
+                v += 1.0
+            except ValueError as e:
+                self.errors.append(str(e))
+            try:
+                v[0] = 0.0
+            except ValueError as e:
+                self.errors.append(str(e))
+
+    def on_step(self, variables, *args):
+        self._write(variables)
+
+    def notify_complete(self, variables, iterations):
+        self._write(variables)
+
+
+@pytest.mark.parametrize("mode", ["python", "jit"])
+def test_handed_out_arrays_are_read_only(mode):
+    """ROADMAP C.1: every host array handed out (each ``on_step`` dict,
+    ``notify_complete``'s dict, ``SolverResult.variables``) is read-only in
+    both packages, and on the CPU the port's shares no memory with a pool
+    tensor. After an observer has tried to write (a first step rejected
+    under ``damping=1e30``, so the pools are still the compiled problem's
+    own), the initial values' cost is unchanged."""
+    results = {}
+    for pkg in (apx, jax_apx):
+        syn = synthetic if pkg is apx else jax_synthetic
+        cp = _compile(pkg, syn.synthetic_pose_graph_2d(25, seed=6).to_problem(fix_first=True))
+        cost0 = float(cp.cost(cp.initial_values()))
+        for damping in (1e30, 1e-3):
+            obs = _Writer()
+            solver = pkg.LevenbergMarquardt(pkg.LevenbergMarquardtConfig(
+                mode=mode, damping=damping, max_iterations=4))
+            solver.add_observer(obs)
+            res = solver.optimize(cp)
+            n_dicts = res.iterations + 1  # one per iteration and the final one
+            assert len(obs.errors) == 2 * 25 * n_dicts, (pkg.__name__, damping)
+            assert all("read-only" in e for e in obs.errors)
+            assert float(cp.cost(cp.initial_values())) == cost0
+        plain = pkg.LevenbergMarquardt(pkg.LevenbergMarquardtConfig(mode=mode)).optimize(cp)
+        for name, v in plain.variables.items():
+            assert not v.flags.writeable, name
+            with pytest.raises(ValueError, match="read-only"):
+                v[0] = 0.0
+        results[pkg] = plain
+    cp = _compile(apx, synthetic.synthetic_pose_graph_2d(25, seed=6).to_problem(fix_first=True))
+    handed = cp.values_dict(cp.initial_values())
+    assert not any(np.shares_memory(v, t.numpy()) for v in handed.values()
+                   for t in cp.initial_values())
+    assert results[apx].iterations == results[jax_apx].iterations
+    np.testing.assert_allclose(results[apx].final_cost, results[jax_apx].final_cost, rtol=1e-8)

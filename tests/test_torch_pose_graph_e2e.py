@@ -339,6 +339,13 @@ def test_port_imports_no_jax():
         "import apex_tpu_torch.observers.base, apex_tpu_torch.observers.visualization\n"
         "import apex_tpu_torch.io.datasets, apex_tpu_torch.cli.download_datasets\n"
         "import apex_tpu_torch.linalg.utils\n"
+        "import apex_tpu_torch.io.rosbag, apex_tpu_torch.io.dds, apex_tpu_torch.cli.bag_tools\n"
+        "import apex_tpu_torch.examples.compare_solvers, apex_tpu_torch.examples.compare_optimizers\n"
+        "import apex_tpu_torch.examples.covariance_estimation, apex_tpu_torch.examples.custom_factor\n"
+        "import apex_tpu_torch.examples.load_graph_file\n"
+        "import apex_tpu_torch.examples.loss_function_comparison\n"
+        "import apex_tpu_torch.examples.visualize_graph_file\n"
+        "import apex_tpu_torch.examples.visualize_optimization\n"
         "g = apex_tpu_torch.io.synthetic.synthetic_pose_graph_2d(20).to_problem(fix_first=True)\n"
         "for solver in ('sparse_qr', 'pcg'):\n"
         "    apex_tpu_torch.DogLeg(apex_tpu_torch.DogLegConfig()).optimize(\n"

@@ -88,7 +88,10 @@ def test_error_hierarchy_matches_apex_tpu():
     assert errors.LinAlgError.__mro__[1] is errors.ApexError
 
 
-def test_error_log(caplog):
+def test_error_log(caplog, monkeypatch):
+    # caplog listens on the root logger: an earlier ``init_logger`` in this
+    # process (a CLI test on the same worker) turned propagation off
+    monkeypatch.setattr(logging.getLogger("apex_tpu_torch"), "propagate", True)
     cause = ValueError("bad block")
     with caplog.at_level(logging.ERROR, logger="apex_tpu_torch"):
         err = errors.LinAlgError("singular").log(cause)
