@@ -303,13 +303,20 @@ def band_plan(slot_specs, m, n, g_base, dump):
     return perm.astype(np.int32), all_dest[perm].astype(np.int32)
 
 
-def band_values(cp, values):
+def band_values(cp, values, groups=None, weights=None):
     """The values ``band_plan`` places, in its emission order (per group:
-    per slot s, J_s^T r, then J_s^T J_t for each t), and the total cost."""
+    per slot s, J_s^T r, then J_s^T J_t for each t), and the total cost.
+    ``groups`` replaces ``cp.groups`` (a rank's factor rows); ``weights``,
+    one [K] tensor per group, scales each linearized row (0 drops the
+    padding rows of a sharded group)."""
     vals = []
     cost = torch.zeros((), dtype=cp.dtype, device=cp.device)
-    for g in cp.groups:
+    groups = cp.groups if groups is None else groups
+    for gi, g in enumerate(groups):
         r, jacs = cp.group_linearize(values, g, True)
+        if weights is not None:
+            r = r * weights[gi][:, None]
+            jacs = [j * weights[gi][:, None, None] for j in jacs]
         cost = cost + 0.5 * torch.sum(r * r)
         for Js in jacs:
             JsT = Js.mT

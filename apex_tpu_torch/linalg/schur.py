@@ -306,6 +306,18 @@ class SchurContext:
         return other
 
     # ------------------------------------------------------------------
+    # The two hooks of the multi-device partition
+    # (``parallel/schur_partitioned.py``): a rank's own factor rows, and the
+    # sum over the ranks of the partial sums that cross devices (H_cc, g_c,
+    # the cost, ``W u``, the Schur-Jacobi blocks, the landmark-side dot
+    # products of the model reduction). On one device: the whole group and
+    # the identity.
+
+    def _group(self, gi):
+        return self.cp.groups[gi]
+
+    def _allreduce(self, *tensors):
+        return tensors if len(tensors) > 1 else tensors[0]
 
     def _pp_shift(self, damping):
         """LM damping floored by the landmark regularization floor (a number
@@ -330,7 +342,7 @@ class SchurContext:
         cost = torch.zeros((), dtype=dt, device=dev)
         Ws = []
         for plan in self.plans:
-            g = cp.groups[plan.group_idx]
+            g = self._group(plan.group_idx)
             r, jacs = cp.group_linearize(values, g, True)
             cost = cost + 0.5 * torch.sum(r * r)
             if plan.cam_slots:
@@ -348,6 +360,7 @@ class SchurContext:
                 if plan.cam_slots:
                     Ws.append(JcT @ Jl)
 
+        Hcc, gc, cost = self._allreduce(Hcc, gc, cost)
         eye = torch.eye(De, dtype=dt, device=dev)
         Hcc = Hcc + self._pad_diag[:, :, None] * eye
         if damping is not None:
@@ -372,18 +385,21 @@ class SchurContext:
         y = torch.zeros((self.num_entities, self.entity_dof), dtype=u.dtype, device=u.device)
         for plan, W in zip(self.couplings, Ws):
             y.index_add_(0, plan.ent, _bmv(W, u[plan.lm]))
-        return y.reshape(-1)
+        return self._allreduce(y.reshape(-1))
+
+    def _schur_diagonal(self, Hcc, Hpp_inv, Ws):
+        """The De x De entity diagonal blocks of S, pose<->intrinsics cross
+        terms through the landmark included: Hcc - sum_k W_k Hpp^-1 W_k^T."""
+        Z = torch.zeros_like(Hcc)
+        for plan, W in zip(self.couplings, Ws):
+            Y = W @ Hpp_inv[plan.lm]  # [K, De, 3]
+            Z.index_add_(0, plan.ent, Y @ W.transpose(1, 2))
+        return Hcc - self._allreduce(Z)
 
     def _entity_prec_inv(self, Hcc, Hpp_inv, Ws, schur_jacobi: bool):
-        """Entity-block preconditioner of S, inverted. With Schur-Jacobi each
-        block is the full De x De entity diagonal block of S, pose<->
-        intrinsics cross terms through the landmark included."""
-        acc = Hcc
-        if schur_jacobi:
-            acc = Hcc.clone()
-            for plan, W in zip(self.couplings, Ws):
-                Y = W @ Hpp_inv[plan.lm]  # [K, De, 3]
-                acc.index_add_(0, plan.ent, -(Y @ W.transpose(1, 2)))
+        """Entity-block preconditioner of S, inverted: the entity diagonal
+        blocks of S with Schur-Jacobi, of H_cc without."""
+        acc = self._schur_diagonal(Hcc, Hpp_inv, Ws) if schur_jacobi else Hcc
         # eigh reads its error flag back: not capturable
         return graphs.uncaptured(spd_clamped_inv, acc)
 
@@ -600,12 +616,15 @@ class SchurContext:
         # exact model reduction: q = dx^T H dx from the damped blocks minus
         # the diagonal shifts
         dot = _dot64
+        # the landmark-side products: dxp^T Hpp dxp, gp . dxp, dxp . dxp
+        lm = self._allreduce(torch.stack([dot(dxp, _bmv(Hpp, dxp)), dot(gp, dxp),
+                                          dot(dxp, dxp)]))
         q_damped = (dot(dxc, self._hcc_matvec(Hcc, dxc))
                     + 2.0 * dot(dxc, self._w_u(Ws, dxp))
-                    + dot(dxp, _bmv(Hpp, dxp)))
+                    + lm[0])
         q = (q_damped - damping * dot(dxc, dxc)
-             - self._pp_shift(damping) * dot(dxp, dxp))
-        predicted = (-(dot(gc, dxc) + dot(gp, dxp)) - 0.5 * q).to(dt)
+             - self._pp_shift(damping) * lm[2])
+        predicted = (-(dot(gc, dxc) + lm[1]) - 0.5 * q).to(dt)
 
         dx, g_full = self._scatter_global(dxc, gc, dxp, gp)
         return dx, g_full, cost, predicted

@@ -1,0 +1,212 @@
+"""Factor-sharded pose-graph assembly and LM steps over a ``ProcessMesh``
+(counterpart of ``apex_tpu/parallel/sharding.py``).
+
+Every factor group is padded to a multiple of the mesh size and rank r
+holds rows ``[r*Kl, (r+1)*Kl)`` of it, as ``P(axis)`` hands device r its
+shard. Each rank linearizes its rows and sums them into local partials;
+one ``all_reduce`` sums the partials over the ranks. Variables are
+replicated (pose-graph state is small), and the solve and the Nielsen
+update run replicated on every rank: all ranks reach the same bits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.problem import CompiledProblem, FactorGroup
+from ..optim.common import compute_step_quality_t
+from .mesh import ProcessMesh
+
+
+@dataclasses.dataclass
+class ShardedGroup:
+    group: FactorGroup  # padded copy
+    weight: torch.Tensor  # [Kp] the group's weights for real rows, 0.0 for padding
+
+
+def _pad_take(n_real: int, n_pad: int) -> np.ndarray:
+    """Row index that repeats row 0 into the padded tail: the padding rows
+    gather valid variables and give the factor kernels finite inputs, and
+    their weight 0 makes them exact no-ops."""
+    take = np.zeros(n_pad, dtype=np.int64)
+    take[:n_real] = np.arange(n_real)
+    return take
+
+
+def rank_rows_of(count: int, k_loc: int, rank: int, size: int):
+    """(the rows of a group of ``count`` rows padded to ``k_loc * size``
+    that rank ``rank`` holds, as a host index into the real rows, and the
+    same rows as a slice of the padded group)."""
+    sl = slice(rank * k_loc, (rank + 1) * k_loc)
+    return _pad_take(count, k_loc * size)[sl], sl
+
+
+def take_rows(group: FactorGroup, take: torch.Tensor, weights=None) -> FactorGroup:
+    """The factor group made of rows ``take`` of ``group`` (int64 tensor),
+    with ``weights`` in place of the group's own."""
+    return dataclasses.replace(
+        group,
+        data={k: v[take] for k, v in group.data.items()},
+        loss_params=group.loss_params[take],
+        indices=tuple(ix[take] for ix in group.indices),
+        cols=tuple(c[take] for c in group.cols),
+        free_masks=tuple(None if m is None else m[take] for m in group.free_masks),
+        weights=weights,
+        count=int(take.shape[0]),
+    )
+
+
+def row_weights(group: FactorGroup, n_pad: int, dtype, device) -> torch.Tensor:
+    """[n_pad] weights: the group's own (1.0 where it has none) on its real
+    rows, 0.0 on the padding."""
+    w = torch.zeros(n_pad, dtype=dtype, device=device)
+    w[:group.count] = 1.0 if group.weights is None else group.weights.to(dtype)
+    return w
+
+
+def pad_groups_for_mesh(cp: CompiledProblem, n_devices: int):
+    """Pad every factor group's K to a multiple of ``n_devices``. The
+    padded copy keeps no weights of its own: ``ShardedGroup.weight`` holds
+    them, and 0.0 on the padding rows (copies of row 0)."""
+    out = []
+    for g in cp.groups:
+        Kp = int(-(-g.count // n_devices) * n_devices)
+        take = torch.as_tensor(_pad_take(g.count, Kp), device=cp.device)
+        out.append(ShardedGroup(take_rows(g, take),
+                                row_weights(g, Kp, cp.dtype, cp.device)))
+    return out
+
+
+def rank_rows(sg: ShardedGroup, rank: int, size: int):
+    """Rank ``rank``'s rows of a padded group: (FactorGroup, weight [Kl])."""
+    Kl = sg.group.count // size
+    take = torch.arange(rank * Kl, (rank + 1) * Kl, device=sg.weight.device)
+    return take_rows(sg.group, take), sg.weight[take]
+
+
+def _weighted_linearize(cp, values, group, weight):
+    r, jacs = cp.group_linearize(values, group, True)
+    return r * weight[:, None], [j * weight[:, None, None] for j in jacs]
+
+
+def make_sharded_normal_fn(cp: CompiledProblem, mesh: ProcessMesh):
+    """Return (fn, shard_args): ``fn(values, *shard_args) -> (H, g, cost)``
+    from this rank's factor rows and one ``all_reduce`` of ``[H | g |
+    cost]``. ``shard_args`` holds one (FactorGroup, weight) per group."""
+    shard_args = tuple(rank_rows(sg, mesh.rank, mesh.size)
+                       for sg in pad_groups_for_mesh(cp, mesh.size))
+
+    def fn(values, *args):
+        D = cp.total_dof
+        H = torch.zeros(D, D, dtype=cp.dtype, device=cp.device)
+        gvec = torch.zeros(D, dtype=cp.dtype, device=cp.device)
+        cost = torch.zeros((), dtype=cp.dtype, device=cp.device)
+        for group, weight in args:
+            r, jacs = _weighted_linearize(cp, values, group, weight)
+            H, gvec, cost = cp.scatter_normal(H, gvec, cost, group, r, jacs)
+        return mesh.all_reduce_many(H, gvec, cost)
+
+    return fn, shard_args
+
+
+def nielsen_accept(cp, values, damping, nu, cost, dx, predicted,
+                   damping_min, damping_max):
+    """The reference's accept / reject and clipped Nielsen update on 0-d
+    tensors: the trial cost of ``values + dx`` against ``cost``, the step
+    taken where rho > 0. -> (values, damping, nu, cost)."""
+    new_values = cp.apply_step(values, dx)
+    new_cost = cp.cost(new_values)
+    rho = compute_step_quality_t(cost, new_cost, predicted)
+    accepted = rho > 0.0
+    coff = 2.0 * rho - 1.0
+    new_damping = torch.where(
+        accepted,
+        torch.clamp(damping * torch.clamp_min(1.0 - coff ** 3, 1.0 / 3.0),
+                    damping_min, damping_max),
+        torch.clamp_max(damping * nu, damping_max))
+    new_nu = torch.where(accepted, torch.full_like(nu, 2.0), nu * 2.0)
+    out_values = tuple(torch.where(accepted, a, b) for a, b in zip(new_values, values))
+    return out_values, new_damping, new_nu, torch.where(accepted, new_cost, cost)
+
+
+def make_sharded_lm_step(cp: CompiledProblem, mesh: ProcessMesh, damping_min=1e-12,
+                         damping_max=1e12):
+    """One sharded LM iteration: sharded assembly of the dense normal
+    equations, the replicated Cholesky solve with its retry ladder, the
+    manifold step and the Nielsen update. ``step(values, damping, nu,
+    cost) -> (values, damping, nu, cost)``, damping, nu and cost 0-d
+    tensors."""
+    from ..linalg.dense import solve_cholesky_with_retry
+
+    normal_fn, shard_args = make_sharded_normal_fn(cp, mesh)
+
+    def step(values, damping, nu, current_cost):
+        H, g, cost = normal_fn(values, *shard_args)
+        dx = solve_cholesky_with_retry(H, g, damping)
+        predicted = 0.5 * torch.dot(dx, damping * dx - g)
+        return nielsen_accept(cp, values, damping, nu, cost, dx, predicted,
+                              damping_min, damping_max)
+
+    return step
+
+
+def make_sharded_banded_lm_step(cp: CompiledProblem, mesh: ProcessMesh,
+                                damping_min=1e-12, damping_max=1e12):
+    """The banded pose-graph LM step over the mesh: each rank sums its
+    factor rows into the block-tridiagonal ``[Dg | Cg | g | dump]`` buffer
+    with a band plan of its own rows, one ``all_reduce`` sums the buffers
+    and the cost, and the block cyclic reduction solve and the Nielsen
+    update run replicated. The reduced buffer is O(D*W): at sphere2500's
+    size (D = 15,000, m = 384) 94 MB in f64 against the 1.8 GB of a dense
+    [D, D] H."""
+    from ..linalg import banded
+
+    W = banded.block_bandwidth(cp)
+    m = banded.default_panel(W)
+    D = cp.total_dof
+    n = -(-D // m)
+    Dp = n * m
+    nmm = n * m * m
+    g_base = 2 * nmm
+    dump = 2 * nmm + Dp
+    n_segments = dump + 1
+    core = banded.make_blocktri_cr_core(D, m, cp.dtype)
+
+    groups, weights, specs = [], [], []
+    sharded = pad_groups_for_mesh(cp, mesh.size)
+    for g, sg, host_cols in zip(cp.groups, sharded, cp.host_group_cols):
+        group, weight = rank_rows(sg, mesh.rank, mesh.size)
+        groups.append(group)
+        weights.append(weight)
+        rows, _ = rank_rows_of(g.count, group.count, mesh.rank, mesh.size)
+        specs.append(([mf.dof for mf in group.manifolds],
+                      [np.asarray(c, dtype=np.int64)[rows] for c in host_cols]))
+    perm, ids = banded.band_plan(specs, m, n, g_base, dump)
+    perm = torch.from_numpy(perm.astype(np.int64)).to(cp.device)
+    ids = torch.from_numpy(ids.astype(np.int64)).to(cp.device)
+
+    def step(values, damping, nu, current_cost):
+        vals, cost = banded.band_values(cp, values, groups=groups, weights=weights)
+        # the last slot carries the cost through the same all_reduce
+        buf = torch.zeros(n_segments + 1, dtype=cp.dtype, device=cp.device)
+        buf.index_add_(0, ids, vals[perm])
+        buf[n_segments] = cost
+        mesh.all_reduce(buf)
+        cost = buf[n_segments]
+        Dg = buf[:nmm].view(n, m, m)
+        Cg = buf[nmm:2 * nmm].view(n, m, m)
+        gv = buf[g_base:g_base + D]
+        pad = Dp - D
+        if pad:
+            k = torch.arange(D % m, m, device=Dg.device)
+            Dg[n - 1, k, k] += 1.0
+        bp = torch.nn.functional.pad(-gv, (0, pad)).reshape(n, m)
+        dx = core(Dg, Cg, bp, damping)[:D]
+        predicted = 0.5 * torch.dot(dx, damping * dx - gv)
+        return nielsen_accept(cp, values, damping, nu, cost, dx, predicted,
+                              damping_min, damping_max)
+
+    return step

@@ -6,9 +6,9 @@ the general-sparsity tier), lens self-calibration through the 8 camera
 models, and pose graphs on the extended Lie groups once on one CUDA card,
 in python mode and in ``mode="jit"`` (replayed CUDA graphs; phases 19-28),
 then the solver's support surface: observers, checkpoint / resume and the
-CLIs' ``--dataset`` (phases 29-31), and last the ported examples and a
-mobile robot's ROS2 recording through the bag and DDS layers (phases
-32-33).
+CLIs' ``--dataset`` (phases 29-31), the ported examples and a mobile
+robot's ROS2 recording through the bag and DDS layers (phases 32-33), and
+last the multi-device solves over ``torch.distributed`` (phase 34).
 
 Run from the repository root: ``python3 chip_smoke.py``. Phases, in order,
 each printing one JSON line; any failure raises and exits non-zero:
@@ -190,13 +190,30 @@ each printing one JSON line; any failure raises and exits non-zero:
     ``metadata.yaml`` counts; then ``bag_tools`` info, filter and extract
     (30,000 CSV rows) and a replay of /odom through ``LoopbackTransport``
     into a ``DdsListener``. Prints per storage the write and read seconds,
-    messages/s, MB/s and file bytes, with the host's CPU model.
+    messages/s, MB/s and file bytes, with the host's CPU model;
+34. multidevice: ``apex_tpu_torch.parallel`` with its ranks as processes
+    spawned from the smoke (``parallel.launch``), first 1 NCCL rank, then
+    2 gloo ranks sharing the card (their all-reduces through host memory):
+    the trafalgar-scale synthetic of phase 5 in its default layout through
+    the landmark-partitioned Schur step, 10 LM iterations with the forcing
+    sequence and the warm start, f64 (twice on 1 rank), f32 on 2 ranks; its
+    flat layout through the observation-sharded block path on 2 ranks; the
+    sphere2500-shaped graph through the banded sharded step and the medium
+    SE3 fixture through the dense one, 8 steps each (twice on 1 rank); then
+    ``graft_entry.dryrun_multichip(2, backend="gloo")`` and the
+    ``multichip_ba`` example on 2 gloo ranks. Each rank prints one line per
+    run (costs, kernel launches, all-reduces, bytes and seconds per LM
+    iteration, the all-reduce share, s per LM iteration, peak memory).
+    Gates: the path taken, the BA gate, 2 ranks against 1 (rtol 1e-8 BA,
+    1e-10 pose graphs, or 10x the two 1-rank runs' spread), both ranks'
+    final values bitwise equal, one kernel launch per rank per LM
+    iteration on both Schur routes, the sphere reduced by 99%.
 
 The pose-graph paths launch no kernel of the port's own (the TPU reference
 ran them in XLA, outside Pallas): the landmark-block kernel, the one hand
 kernel, runs on the BA paths only (the BAL and the self-calibration ones).
-Then the kernel summary line (the python-mode, camera, support and examples
-launches, the jit BA launches, each per LM iteration), and last
+Then the kernel summary line (the python-mode, camera, support, examples
+and multi-device launches, the jit BA launches, each per LM iteration), and last
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without one.
 """
@@ -2923,6 +2940,237 @@ def phase_bags(workdir, seconds=600.0, seed=0):
               dds_messages_per_s=len(got) / dds_s))
 
 
+# phase 34: the multi-device solves on the one card (apex_tpu_torch.parallel)
+MD_BA_STEPS = 10  # LM iterations of each BA run
+MD_SPHERE_STEPS = 8  # of the banded sphere run
+MD_MEDIUM_STEPS = 8  # of the dense medium-fixture run
+# (name, kind, dtype, layout): the runs of each world, in order
+MD_ONE_RANK = (("partitioned_f64", "ba", "float64", "bucketed"),
+               ("partitioned_f64_again", "ba", "float64", "bucketed"),
+               ("banded_sphere", "banded", "float64", None),
+               ("banded_sphere_again", "banded", "float64", None),
+               ("dense_medium", "dense", "float64", None),
+               ("dense_medium_again", "dense", "float64", None))
+MD_TWO_RANKS = (("partitioned_f64", "ba", "float64", "bucketed"),
+                ("partitioned_f32", "ba", "float32", "bucketed"),
+                ("block_flat_f64", "ba", "float64", "flat"),
+                ("banded_sphere", "banded", "float64", None),
+                ("dense_medium", "dense", "float64", None))
+
+
+def md_problem(kind, dtype, layout, device, cache):
+    """(compiled problem, LM iterations, observations or None) of a run."""
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.ba import build_ba_problem
+    from apex_tpu_torch.io import synthetic
+
+    dt = getattr(torch, dtype)
+    if kind == "ba":
+        if "ds" not in cache:
+            cache["ds"] = synthetic.synthetic_ba_large(n_cameras=257, n_points=65_132,
+                                                       obs_per_camera=879, seed=0)
+        ds = cache["ds"]
+        problem = build_ba_problem(ds, mode="self_calibration", layout=layout)
+        return problem.compile(dtype=dt, device=device), MD_BA_STEPS, ds.num_observations
+    if kind == "banded":
+        g = synthetic.synthetic_pose_graph_3d(n_poses=2500, rings=50, seed=0)
+        return g.to_problem().compile(dtype=dt, device=device), MD_SPHERE_STEPS, None
+    g = apx.load_g2o(os.path.join(REPO, MEDIUM_SE3[0]))
+    return g.to_problem().compile(dtype=dt, device=device), MD_MEDIUM_STEPS, None
+
+
+def md_rank(mesh, runs):
+    """Phase 34 on one rank: each run's steps, timed one by one, with the
+    landmark kernel's launches and the mesh's all-reduces counted from 0
+    just before the first step. Each rank prints one JSON line per run, in
+    rank order; returns {run: result}."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from apex_tpu_torch.ba import rmse
+    from apex_tpu_torch.kernels import landmark_blocks as lb
+    from apex_tpu_torch.parallel import (make_sharded_banded_lm_step, make_sharded_lm_step,
+                                         make_sharded_schur_step)
+
+    dev = mesh.device
+    cache, out = {}, {}
+    for name, kind, dtype, layout in runs:
+        cp, n_steps, n_obs = md_problem(kind, dtype, layout, dev, cache)
+        if kind == "ba":
+            step, _ = make_sharded_schur_step(cp, mesh)
+        elif kind == "banded":
+            step = make_sharded_banded_lm_step(cp, mesh)
+        else:
+            step = make_sharded_lm_step(cp, mesh)
+        partitioned = hasattr(step, "solve")
+        values = cp.initial_values()
+        damping = torch.tensor(1e-3, dtype=cp.dtype, device=dev)
+        nu = torch.tensor(2.0, dtype=cp.dtype, device=dev)
+        cost = cp.cost(values)
+        costs, step_s = [float(cost)], []
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        lb.launches = 0
+        mesh.all_reduces, mesh.all_reduce_bytes, mesh.all_reduce_seconds = 0, 0, 0.0
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            if partitioned:
+                values, damping, nu, cost = step(values, damping, nu, cost, iteration=i,
+                                                 dx_prev=step.last_dx)
+            else:
+                values, damping, nu, cost = step(values, damping, nu, cost)
+            torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - t0)
+            costs.append(float(cost))
+        launches = lb.launches
+        seconds = sum(step_s)
+        res = dict(phase="multidevice_rank", world=mesh.size, rank=mesh.rank,
+                   backend=dist.get_backend(), run=name, kind=kind, dtype=dtype,
+                   partitioned=partitioned, steps=n_steps, costs=costs,
+                   kernel_launches=launches,
+                   all_reduces_per_iteration=mesh.all_reduces / n_steps,
+                   all_reduce_bytes_per_iteration=mesh.all_reduce_bytes / n_steps,
+                   all_reduce_seconds_per_iteration=mesh.all_reduce_seconds / n_steps,
+                   all_reduce_share=mesh.all_reduce_seconds / seconds,
+                   seconds_per_iteration=seconds / n_steps,
+                   seconds_per_iteration_after_first=sum(step_s[1:]) / (n_steps - 1),
+                   first_step_seconds=step_s[0],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                   values_sha256=hashlib.sha256(b"".join(
+                       v.cpu().numpy().tobytes() for v in values)).hexdigest())
+        if n_obs is not None:
+            res.update(observations=n_obs, rmse_initial=rmse(costs[0], n_obs),
+                       rmse_final=rmse(costs[-1], n_obs))
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                emit(res)
+            dist.barrier()
+        out[name] = res
+    return out
+
+
+def md_close(label, got, want, rtol, spread):
+    """Costs of two runs within max(rtol, 10x the spread of two one-rank
+    runs): ``index_add_`` sums in atomic order on the card."""
+    import numpy as np
+
+    tol = max(rtol, 10.0 * spread)
+    got, want = np.asarray(got), np.asarray(want)
+    err = float(np.max(np.abs(got - want) / np.abs(want)))
+    if not err <= tol:
+        raise AssertionError(f"multidevice {label}: relative difference {err} above {tol}")
+    return err
+
+
+def md_spread(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b) / np.abs(a)))
+
+
+def phase_multidevice(workdir):
+    """Phase 34: the multi-device solves, ranks as processes spawned from
+    the smoke (``parallel.launch``), the mesh timing each all-reduce:
+
+    (a) the trafalgar-scale synthetic in the default (bucketed) layout
+        through the landmark-partitioned Schur step, 10 LM iterations with
+        the forcing sequence and the warm start, f64 on 1 NCCL rank (twice)
+        and on 2 gloo ranks sharing the card, f32 on the 2 gloo ranks;
+    (b) its flat layout through the observation-sharded block path, 2 gloo
+        ranks;
+    (c) the sphere2500-shaped graph through the banded sharded step, 8
+        steps, and the medium SE3 fixture through the dense sharded step, 8
+        steps, 1 NCCL rank (twice) against 2 gloo ranks;
+    (d) ``graft_entry.dryrun_multichip(2, backend="gloo")`` and the
+        ``multichip_ba`` example on 2 gloo ranks on the card, each in a
+        process of its own.
+
+    Gates: the path; the BA gate (RMSE below 0.55x); 2 ranks against 1 at
+    rtol 1e-8 (BA) and 1e-10 (pose graphs), or 10x the spread of the two
+    1-rank runs where that is larger; the ranks' final values bitwise
+    equal; one landmark-kernel launch per rank per LM iteration on both
+    Schur routes; the sphere's cost reduced by more than 99%; exit 0 of
+    (d). Returns (kernel launches, rank LM iterations) of the BA runs."""
+    from apex_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    one = launch(md_rank, 1, "nccl", "cuda", MD_ONE_RANK, timed=True)[0]
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = launch(md_rank, 2, "gloo", "cuda", MD_TWO_RANKS, timed=True)
+    two_s = time.perf_counter() - t0
+
+    launches = iterations = 0
+    for world in ([one], two):
+        for res in (r for rank in world for r in rank.values()):
+            if res["kind"] != "ba":
+                if res["kernel_launches"]:
+                    raise AssertionError(f"multidevice {res['run']}: kernel launches "
+                                         "in a pose-graph run")
+                continue
+            want_path = not res["run"].startswith("block")
+            if res["partitioned"] != want_path:
+                raise AssertionError(f"multidevice {res['run']}: partitioned path "
+                                     f"{res['partitioned']}")
+            if not res["rmse_final"] < 0.55 * res["rmse_initial"]:
+                raise AssertionError(f"multidevice {res['run']} on {res['world']} ranks: "
+                                     f"RMSE {res['rmse_initial']} -> {res['rmse_final']}")
+            if res["kernel_launches"] != res["steps"]:
+                raise AssertionError(f"multidevice {res['run']}: {res['kernel_launches']} "
+                                     f"kernel launches in {res['steps']} LM iterations")
+            launches += res["kernel_launches"]
+            iterations += res["steps"]
+    for name, _, _, _ in MD_TWO_RANKS:
+        if two[0][name]["values_sha256"] != two[1][name]["values_sha256"]:
+            raise AssertionError(f"multidevice {name}: the two ranks' values differ")
+    errors = {}
+    for name, rtol in (("partitioned_f64", 1e-8), ("banded_sphere", 1e-10),
+                       ("dense_medium", 1e-10)):
+        spread = md_spread(one[name]["costs"], one[f"{name}_again"]["costs"])
+        errors[name] = dict(spread_one_rank=spread, two_against_one=md_close(
+            name, two[0][name]["costs"], one[name]["costs"], rtol, spread))
+    sphere = one["banded_sphere"]["costs"]
+    if not sphere[-1] < 0.01 * sphere[0]:
+        raise AssertionError(f"multidevice banded_sphere: {sphere[0]} -> {sphere[-1]}")
+
+    from apex_tpu_torch.graft_entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, device="cuda", backend="gloo")
+    dry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "apex_tpu_torch.examples.multichip_ba", "2",
+                           "--backend", "gloo"], cwd=workdir, capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=REPO), timeout=300)
+    example_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"multichip_ba: exit {proc.returncode}\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+
+    def summary(res):
+        keys = ("seconds_per_iteration", "seconds_per_iteration_after_first",
+                "all_reduces_per_iteration", "all_reduce_bytes_per_iteration",
+                "all_reduce_share", "max_memory_allocated", "kernel_launches")
+        return {k: res[k] for k in keys}
+
+    emit(dict(phase="multidevice", host_cpu=host_cpu(),
+              world_seconds={"nccl_1": one_s, "gloo_2": two_s},
+              one_rank={name: summary(res) for name, res in one.items()},
+              two_ranks={name: [summary(rank[name]) for rank in two]
+                         for name, _, _, _ in MD_TWO_RANKS},
+              costs={"one_rank": {k: v["costs"] for k, v in one.items()},
+                     "two_ranks": {k: two[0][k]["costs"] for k, _, _, _ in MD_TWO_RANKS}},
+              cost_errors=errors, dryrun=dry, dryrun_seconds=dry_s,
+              example_seconds=example_s, example_stdout=proc.stdout.splitlines()[-1],
+              kernel_launches=launches, rank_iterations=iterations))
+    return launches, iterations
+
+
 def main():
     import tempfile
 
@@ -3030,8 +3278,14 @@ def main():
         t0 = time.perf_counter()
         phase_bags(workdir)
         seconds["bags"] = time.perf_counter() - t0
+        # the multi-device path's kernel count: from 0 in each rank's process,
+        # per run (phase 34)
+        t0 = time.perf_counter()
+        launches_md, iterations_md = phase_multidevice(workdir)
+        seconds["multidevice"] = time.perf_counter() - t0
     if lb.launches != launches_before:
-        raise AssertionError("examples / bags: kernel launches in the smoke's own process")
+        raise AssertionError("examples / bags / multidevice: kernel launches in the smoke's "
+                             "own process")
     emit(dict(phase="seconds", **seconds))
 
     main_shape = measured[(65_132, torch.float64)]
@@ -3040,10 +3294,12 @@ def main():
         "route": "cuda",
         "source": "apex_tpu_torch/csrc/landmark_blocks.cu",
         "replaces": "apex_tpu/kernels/landmark_blocks.py:101",
-        "launches": launches + launches_camera + launches_support + launches_examples,
+        "launches": launches + launches_camera + launches_support + launches_examples
+        + launches_md,
         "launches_per_lm_iteration": (
-            launches + launches_camera + launches_support + launches_examples) / (
-            iterations + iterations_camera + iterations_support + iterations_examples),
+            launches + launches_camera + launches_support + launches_examples + launches_md) / (
+            iterations + iterations_camera + iterations_support + iterations_examples
+            + iterations_md),
         "launches_camera": launches_camera,
         "launches_per_lm_iteration_camera": launches_camera / iterations_camera,
         "launches_support": launches_support,
@@ -3052,6 +3308,8 @@ def main():
         "launches_per_lm_iteration_examples": launches_examples / iterations_examples,
         "launches_jit": launches_jit,
         "launches_per_lm_iteration_jit": launches_jit / iterations_jit,
+        "launches_multidevice": launches_md,
+        "launches_per_lm_iteration_multidevice": launches_md / iterations_md,
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["device_us"] / 1e3,
         "plain_ms": main_shape["plain_ms"],

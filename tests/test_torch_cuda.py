@@ -837,3 +837,36 @@ def test_compare_solvers_example_on_the_card(card, monkeypatch):
             c["solver"], c["status"], c["iterations"])
         np.testing.assert_allclose([r["final_cost"], r["rmse"]], [c["final_cost"], c["rmse"]],
                                    rtol=1e-8)
+
+
+def _partitioned_rank(mesh):
+    """Five landmark-partitioned LM steps (forcing sequence, warm start) of
+    ``synthetic_ba(7, 110, seed=4)`` with self-calibration, f64, on one
+    rank: the costs and the landmark kernel's launches."""
+    from apex_tpu_torch.parallel import make_sharded_schur_step
+
+    ds = synthetic.synthetic_ba(n_cameras=7, n_points=110, seed=4)
+    cp = build_ba_problem(ds, mode="self_calibration").compile(dtype=torch.float64,
+                                                               device=mesh.device)
+    step, _ = make_sharded_schur_step(cp, mesh)
+    values = cp.initial_values()
+    state = (values, torch.tensor(1e-3, dtype=cp.dtype, device=cp.device),
+             torch.tensor(2.0, dtype=cp.dtype, device=cp.device), cp.cost(values))
+    before, costs = lb.launches, [float(state[3])]
+    for i in range(5):
+        state = step(*state, iteration=i, dx_prev=step.last_dx)
+        costs.append(float(state[3]))
+    return dict(partitioned=hasattr(step, "solve"), costs=costs, launches=lb.launches - before)
+
+
+def test_partitioned_step_nccl_matches_cpu(card):
+    """One NCCL rank on the card against one gloo rank on the CPU: the
+    partitioned path, one kernel launch per LM iteration on the card and
+    none on the CPU, costs within rtol 1e-8."""
+    from apex_tpu_torch.parallel import launch
+
+    gpu = launch(_partitioned_rank, 1, "nccl", "cuda")[0]
+    cpu = launch(_partitioned_rank, 1, "gloo", "cpu")[0]
+    assert gpu["partitioned"] and cpu["partitioned"]
+    assert (gpu["launches"], cpu["launches"]) == (5, 0)
+    np.testing.assert_allclose(gpu["costs"], cpu["costs"], rtol=1e-8)

@@ -27,7 +27,9 @@ import ast
 import contextlib
 import importlib
 import io
+import json
 import math
+import os
 import re
 import runpy
 import sys
@@ -220,3 +222,51 @@ def test_rows_equal_jax(name, jax_runs, port_runs, workdir):
                                        rtol=RTOL)
     else:
         raise AssertionError(name)
+
+
+def test_multichip_ba_matches_jax(tmp_path):
+    """``multichip_ba`` on 2 gloo ranks on the CPU, as a user runs it: exit
+    0, its text equal to the JAX script's on conftest's 8 virtual devices
+    apart from the first line (ranks against devices, by design), and the
+    cost of every LM iteration at rtol 1e-8 (the JAX side's recorded by
+    wrapping the step its ``make_sharded_schur_step`` returns)."""
+    import subprocess
+
+    import apex_tpu.parallel as jax_par
+
+    code = ("import json, sys\n"
+            "from apex_tpu_torch.examples import multichip_ba\n"
+            "rows = multichip_ba.main(['2', '--platform', 'cpu'])\n"
+            "print('ROWS ' + json.dumps(rows), file=sys.stderr)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=600, env={**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr
+    rows = json.loads([s for s in proc.stderr.splitlines() if s.startswith("ROWS ")][-1][5:])
+
+    costs, make = [], jax_par.make_sharded_schur_step
+
+    def recording(*a, **kw):
+        step, shard_args = make(*a, **kw)
+
+        def recorded(*s):
+            out = step(*s)
+            costs.append(float(out[3]))
+            return out
+
+        recorded.solve = step.solve
+        return recorded, shard_args
+
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_par, "make_sharded_schur_step", recording)
+        mp.chdir(tmp_path)
+        mp.setattr(sys, "argv", ["multichip_ba.py", "8"])
+        mp.setattr(sys, "path", list(sys.path))
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(str(REPO / "examples" / "multichip_ba.py"), run_name="__main__")
+    want, got = out.getvalue().splitlines(), proc.stdout.splitlines()
+    assert got[0].startswith("ranks: 2 (gloo on cpu) | partitioned path: True | 1600 ")
+    assert want[0].startswith("mesh: 8 devices | plane path: True | 1600 ")
+    assert got[1:] == want[1:]
+    assert len(costs) == len(rows) - 1 == 8
+    np.testing.assert_allclose([r["cost"] for r in rows[1:]], costs, rtol=RTOL)
