@@ -33,10 +33,12 @@ from .corrector import correct
 from .losses import Loss
 
 
+_DIGIT_RUNS = _re.compile(r"(\d+)")
+
+
 def _natural_key(name: str):
     """Sort key splitting digit runs into ints: x2 < x10, cam_9 < cam_10."""
-    return [int(part) if part.isdigit() else part
-            for part in _re.split(r"(\d+)", name)]
+    return [int(part) if part.isdigit() else part for part in _DIGIT_RUNS.split(name)]
 
 
 @dataclasses.dataclass
@@ -335,12 +337,12 @@ class Problem:
 
         names_sorted = sorted(self._manifold_of, key=_natural_key)
         names_layout = self._ordered_names(names_sorted, ordering)
-        col_of: Dict[str, int] = {}
-        off = 0
-        for n in names_layout:
-            col_of[n] = off
-            off += get_manifold(self._manifold_of[n]).dof
-        total_dof = off
+        dof_of = {m: get_manifold(m).dof for m in set(self._manifold_of.values())}
+        dofs = np.fromiter((dof_of[self._manifold_of[n]] for n in names_layout),
+                           dtype=np.int64, count=len(names_layout))
+        offsets = np.cumsum(dofs) - dofs
+        col_of: Dict[str, int] = dict(zip(names_layout, offsets.tolist()))
+        total_dof = int(dofs.sum())
 
         # Pools per manifold name, rows in sorted-name order.
         pool_id_of_manifold: Dict[str, int] = {}
@@ -364,16 +366,19 @@ class Problem:
             lb = np.full((len(names), G.storage_dim), -np.inf)
             ub = np.full((len(names), G.storage_dim), np.inf)
             cols = np.array([col_of[n] for n in names], dtype=np.int64)
-            for i, n in enumerate(names):
-                var_loc[n] = (pid, i)
-                if n in self._fixed:
-                    idx = self._fixed[n]
-                    if idx is None:
-                        free[i, :] = 0.0
-                    else:
-                        free[i, [j for j in idx if j < G.dof]] = 0.0
-                if n in self._bounds:
-                    blo, bhi = self._bounds[n]
+            row_of = dict(zip(names, range(len(names))))
+            var_loc.update((n, (pid, i)) for n, i in row_of.items())
+            for n, idx in self._fixed.items():
+                i = row_of.get(n)
+                if i is None:
+                    continue
+                if idx is None:
+                    free[i, :] = 0.0
+                else:
+                    free[i, [j for j in idx if j < G.dof]] = 0.0
+            for n, (blo, bhi) in self._bounds.items():
+                i = row_of.get(n)
+                if i is not None:
                     lb[i, : len(blo)] = blo
                     ub[i, : len(bhi)] = bhi
             host_free[pid] = free
@@ -386,6 +391,9 @@ class Problem:
         groups: List[FactorGroup] = []
         all_host_cols: List[List[np.ndarray]] = []
         row_offset = 0
+        # (locations, columns) of each indexed slot's base names, once per
+        # distinct name list: the bucketed BA layout's groups share theirs
+        base_of: Dict[tuple, Tuple[np.ndarray, np.ndarray]] = {}
         for (slot_keys, template, bdata, loss, loss_params, wts,
              count) in self._block_batches() + self._bulk:
             manifolds = tuple(get_manifold(m) for m in template.var_manifolds())
@@ -402,8 +410,11 @@ class Problem:
             idx_arrays, col_arrays, pool_ids, mask_arrays, host_cols = [], [], [], [], []
             for kind, names_s, base_idx in slot_keys:
                 if kind == "indexed":
-                    base_locs = np.asarray([var_loc[k] for k in names_s], dtype=np.int64)
-                    base_cols = np.asarray([col_of[k] for k in names_s], dtype=np.int32)
+                    if names_s not in base_of:
+                        base_of[names_s] = (
+                            np.asarray([var_loc[k] for k in names_s], dtype=np.int64),
+                            np.asarray([col_of[k] for k in names_s], dtype=np.int32))
+                    base_locs, base_cols = base_of[names_s]
                     pids = set(base_locs[:, 0].tolist())
                     rows = base_locs[base_idx, 1]
                     cols_s = base_cols[base_idx]

@@ -40,6 +40,13 @@ RETRY_STAGES = 5
 # One refinement pass when a solve's residual exceeds this share of ||b||.
 REFINE_RTOL = {torch.float64: 1e-10, torch.float32: 2e-5}
 
+# CR solves, refinement passes and retry stages run since import (or since a
+# caller last set them to 0). Each counts when its Python code runs: once
+# per use in python mode, once per recording under a jit capture.
+cr_solves = 0
+cr_refines = 0
+cr_retries = 0
+
 
 def default_panel(W: int) -> int:
     """Block size for bandwidth W: multiples of 128 from W = 128 on, a tight
@@ -192,6 +199,8 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
         return xe.reshape(-1)[:n * m]
 
     def solve_blocks(Dg0, Cg, bp, damping=None):
+        global cr_solves
+        cr_solves += 1
         damp = damping_tensor(damping, dtype, Dg0.device)
         # mean diagonal magnitude for the retry ladder's first shift
         trace_d = torch.diagonal(Dg0, dim1=-2, dim2=-1).sum() / D + damp
@@ -215,6 +224,8 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
             res, res2 = residual2(Dgs, x)
 
             def refine(x, res, res2):
+                global cr_refines
+                cr_refines += 1
                 with record_function("cr.refine"):
                     x = x + solve_once(Dgs, Cg, res)
                     return (x, *residual2(Dgs, x))
@@ -225,6 +236,8 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
         bad2 = retry_rtol ** 2 * bb
 
         def retry(stage, x, res2, reg):
+            global cr_retries
+            cr_retries += 1
             reg = BASE_REG * trace_d if stage == 0 else reg * 100.0
             with record_function("cr.retry"):
                 return (*attempt(damp + reg), reg)

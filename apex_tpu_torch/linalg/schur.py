@@ -54,6 +54,13 @@ from .utils import bmv as _bmv
 from .utils import spd_clamped_inv
 
 
+# PCG solves and their iterations run since import (or since a caller last
+# set them to 0), counted as the loop's Python code runs: exactly in python
+# mode, once per recording under a jit capture.
+pcg_calls = 0
+pcg_iterations = 0
+
+
 def landmark_inverse(Hpp):
     """Regularized inverse of the landmark blocks: the CUDA kernel for a
     CUDA tensor, f32 or f64 at any size; the plain version on the CPU."""
@@ -199,9 +206,11 @@ class SchurContext:
                          if g.count and lm_id_arr[gcols(gi, s)[0]] < 0]
             for ai in range(len(cam_slots)):
                 for bi in range(ai + 1, len(cam_slots)):
-                    pairs = np.unique(np.stack(
-                        [gcols(gi, cam_slots[ai]), gcols(gi, cam_slots[bi])], axis=1), axis=0)
-                    for pa, pb in pairs.tolist():
+                    # the distinct (a, b) column pairs in row order, as one
+                    # 1-D sort of a * D + b (b < D)
+                    pairs = np.unique(gcols(gi, cam_slots[ai]).astype(np.int64) * D
+                                      + gcols(gi, cam_slots[bi]))
+                    for pa, pb in zip(*(half.tolist() for half in np.divmod(pairs, D))):
                         ra, rb = find(int(pa)), find(int(pb))
                         if ra != rb:
                             parent[ra] = rb
@@ -412,6 +421,8 @@ class SchurContext:
         is guarded: if ||S x0 - b|| is not below ||b|| (a damping jump, a
         rejected step), PCG starts from zero instead. The warm start's first
         pass counts as iteration 0."""
+        global pcg_calls
+        pcg_calls += 1
         if rtol is None:
             rtol = self.pcg_rtol_floor
         if max_iter is None:
@@ -449,6 +460,8 @@ class SchurContext:
             return more
 
         def iterate(x, r, p, rz, Qp, Qn):
+            global pcg_iterations
+            pcg_iterations += 1
             Sp = apply_S(p)
             denom = dot(p, Sp)
             alpha = (rz / torch.where(denom == 0, torch.ones_like(denom), denom)).to(b.dtype)

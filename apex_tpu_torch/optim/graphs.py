@@ -63,6 +63,8 @@ reads its flag there exactly as the loop it replaces did.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..kernels import landmark_blocks
@@ -179,13 +181,22 @@ def ladder(bad, stage_fn, stages, *state):
     """A retry ladder as the reference's ``while_loop``: stage ``k``
     (``state = stage_fn(k, *state)``) runs only where ``bad(*state)`` holds
     after stage ``k - 1``, nested in it, ``stages`` times at most."""
-    def run(stage, *state):
-        def body(*state):
-            state = stage_fn(stage, *state)
-            return run(stage + 1, *state) if stage + 1 < stages else state
-        return cond_update(bad(*state), body, *state)
+    return cond_update(bad(*state), functools.partial(_ladder_stage, bad, stage_fn, stages, 0),
+                       *state)
 
-    return run(0, *state)
+
+def _ladder_stage(bad, stage_fn, stages, stage, *state):
+    """Stage ``stage`` of ``ladder``, and the rest nested in it. A module
+    function, not a closure that calls itself: such a closure is a
+    reference cycle, and it kept the solve's inputs (``stage_fn``'s
+    closure: a CR solve's band, a dense H) alive until the garbage collector
+    ran, one set per LM iteration in python mode."""
+    state = stage_fn(stage, *state)
+    if stage + 1 < stages:
+        return cond_update(bad(*state),
+                           functools.partial(_ladder_stage, bad, stage_fn, stages, stage + 1),
+                           *state)
+    return state
 
 
 def while_update(pred, body, max_trips, *state):
@@ -315,6 +326,9 @@ class Captured:
         with warmup_mode(), torch.cuda.stream(side):
             fn(*(t.clone() for t in self.state))
         side.synchronize()
+        # the warm-up's freed blocks stay cached in the default pool, where
+        # the capture's private pool cannot take them: hand them back first
+        torch.cuda.empty_cache()
         with _Mode("capture", _Recorder(pool)) as rec, torch.cuda.stream(side):
             rec.begin_graph()
             out = fn(*self.state)

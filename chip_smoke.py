@@ -7,8 +7,9 @@ models, and pose graphs on the extended Lie groups once on one CUDA card,
 in python mode and in ``mode="jit"`` (replayed CUDA graphs; phases 19-28),
 then the solver's support surface: observers, checkpoint / resume and the
 CLIs' ``--dataset`` (phases 29-31), the ported examples and a mobile
-robot's ROS2 recording through the bag and DDS layers (phases 32-33), and
-last the multi-device solves over ``torch.distributed`` (phase 34).
+robot's ROS2 recording through the bag and DDS layers (phases 32-33), the
+multi-device solves over ``torch.distributed`` (phase 34), and last the
+JAX package's scale ladder at full size (phase 35).
 
 Run from the repository root: ``python3 chip_smoke.py``. Phases, in order,
 each printing one JSON line; any failure raises and exits non-zero:
@@ -18,7 +19,8 @@ each printing one JSON line; any failure raises and exits non-zero:
    its launch configuration per dtype (tile, stages, residency, registers);
 3. kernel: the CUDA landmark-block inverse against its plain PyTorch version
    on the card, at P = 65,132 (trafalgar's landmarks) and 993,923 (venice's),
-   f32 and f64: bitwise equal, and timed (see ``phase_kernel``);
+   f32 and f64: bitwise equal, and timed (see ``phase_kernel``); at 226,730
+   and 156,502 (dubrovnik's and ladybug's) bitwise equal;
 4. small-slice parity: ``synthetic_ba(8, 150, seed=0)`` solved exactly in
    f64 on the card and on the CPU: same iterations and status, final cost
    within rtol 1e-8 (CUDA index_add_ sums in atomic order, ~1e-15 apart);
@@ -207,13 +209,39 @@ each printing one JSON line; any failure raises and exits non-zero:
     Gates: the path taken, the BA gate, 2 ranks against 1 (rtol 1e-8 BA,
     1e-10 pose graphs, or 10x the two 1-rank runs' spread), both ranks'
     final values bitwise equal, one kernel launch per rank per LM
-    iteration on both Schur routes, the sphere reduced by 99%.
+    iteration on both Schur routes, the sphere reduced by 99%;
+35. scale: bench.py's ladder at full size through
+    ``apex_tpu_torch.benches.ladder``'s build and solve functions (its
+    configs and gates): torus3d (5,000 poses), cubicle (5,750) and pose50k
+    (50,000 poses, D = 300,000) through LM ``sparse_cholesky``, then
+    dubrovnik-356 (1,255,256 observations), ladybug-1723 (678,862) and
+    venice-1778 (5,001,514; P = 993,923, 6,351 of them seen by no camera)
+    through ``schur_implicit``; each f64 in python mode and in jit mode
+    (the first solve timed apart, then one timed solve), f32 in jit mode
+    and once in python mode for its counts; dubrovnik also once through
+    ``schur`` (the explicit variant, Dc = 3,204). One line per rung: the
+    card, the host CPU, build, compile, first-solve, capture and solve
+    seconds, LM iterations, costs and RMSE, peak allocated and reserved
+    memory, graph memory, host reads, kernel launches, PCG iterations and
+    CR retries per LM iteration, and for the venice f64 jit solve a
+    profile (idle share, top 5 device ops, the kernel's device us); venice
+    also in f64 for 5 fixed LM iterations in both modes (peak memory of a
+    solve that iterates), and pose50k's and that venice run's first jit
+    solves under the allocator's history (the graph pool's peak and what
+    the captured programs keep, by allocating line). Gates:
+    f64 in both modes the JAX package's initial cost (rtol 1e-12), status,
+    LM iterations and final cost (rtol 1e-8; ``SCALE_JAX``); jit mode python
+    mode's (rtol 1e-10, or 10x python mode's spread); every dtype and mode
+    bench.py's gate; one kernel launch per BA LM iteration in python mode;
+    venice's unseen landmarks at their initial values; the 5-iteration
+    venice below 0.46 px, jit mode python mode's.
 
 The pose-graph paths launch no kernel of the port's own (the TPU reference
 ran them in XLA, outside Pallas): the landmark-block kernel, the one hand
 kernel, runs on the BA paths only (the BAL and the self-calibration ones).
-Then the kernel summary line (the python-mode, camera, support, examples
-and multi-device launches, the jit BA launches, each per LM iteration), and last
+Then the kernel summary line (the python-mode, camera, support, examples,
+multi-device and scale launches, the jit BA launches, each per LM
+iteration), and last
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without one.
 """
@@ -314,13 +342,11 @@ def bound_us(P, dtype_name):
     return (bytes_us, "bytes") if bytes_us >= ops_us else (ops_us, "operations")
 
 
-def phase_kernel(P, dtype):
-    """Bitwise agreement with the plain version, then the kernel's device
-    time per launch (rotating over enough input copies to exceed the 50 MB L2
-    at venice scale; one warm copy at trafalgar scale, as the solve finds
-    Hpp right after writing it), the host time per call, the single-call
-    time, the plain version's time, and the device time of a plain copy of
-    the same inputs."""
+def kernel_bitwise(P, dtype):
+    """The kernel's output finite and bitwise equal to the plain version's
+    on ``kernel_blocks(P)``: (the input on the card, the max abs error). The
+    work split (full tiles per CTA, the CTA that takes the ragged edge)
+    depends on P, so each P of the main path gets this gate."""
     import torch
 
     from apex_tpu_torch.kernels import landmark_blocks as lb
@@ -335,6 +361,22 @@ def phase_kernel(P, dtype):
     max_abs = float((k - p).abs().max())
     if not torch.equal(k, p):
         raise AssertionError(f"kernel differs from plain (P={P}, {name}): max abs {max_abs}")
+    return H, max_abs
+
+
+def phase_kernel(P, dtype):
+    """Bitwise agreement with the plain version, then the kernel's device
+    time per launch (rotating over enough input copies to exceed the 50 MB L2
+    at venice scale; one warm copy at trafalgar scale, as the solve finds
+    Hpp right after writing it), the host time per call, the single-call
+    time, the plain version's time, and the device time of a plain copy of
+    the same inputs."""
+    import torch
+
+    from apex_tpu_torch.kernels import landmark_blocks as lb
+
+    name = str(dtype).replace("torch.", "")
+    H, max_abs = kernel_bitwise(P, dtype)
     # four copies of a venice-scale input (143 MB in f32) are far beyond L2
     copies = [H] + ([H.clone() for _ in range(3)] if P > 65_132 else [])
     device_us, host_us = device_and_host_us(lb.invert_landmark_blocks, copies)
@@ -533,6 +575,8 @@ def profile_solve(solve):
                 iterations=iterations, device_events=len(device),
                 device_events_per_lm_iteration=len(device) / iterations,
                 landmark_kernel_events=sum(LANDMARK_KERNEL in e.name for e in device),
+                landmark_kernel_ms=sum(e.time_range.elapsed_us() for e in device
+                                       if LANDMARK_KERNEL in e.name) / 1e3,
                 top_device_ops_ms=[[name[:90], us / 1e3] for name, us in top], spans=spans)
 
 
@@ -3171,6 +3215,460 @@ def phase_multidevice(workdir):
     return launches, iterations
 
 
+# -- slice 13: the scale ladder -------------------------------------------------
+
+# The JAX package on a CPU, f64, bench.py's configs in python mode, its own
+# build and compile of each rung (tests/scale_reference.py): the initial
+# cost, and the status, LM iterations and final cost of the solve.
+SCALE_JAX = {
+    "torus3d": (4004.0589871703596, ("COST_TOLERANCE_REACHED", 4, 17.429097497226966)),
+    "cubicle": (5392.174001638021, ("COST_TOLERANCE_REACHED", 4, 41.08180132334645)),
+    "pose50k": (71610.69869060852, ("COST_TOLERANCE_REACHED", 6, 190.75766379995434)),
+    "dubrovnik": (5788301.604063559, ("MIN_COST_THRESHOLD_REACHED", 1, 249197.43422463295)),
+    "ladybug": (3168343.3709838716, ("MAX_ITERATIONS_REACHED", 5, 290041.1614633131)),
+    "venice": (23052186.548304845, ("MIN_COST_THRESHOLD_REACHED", 1, 393137.332888945)),
+}
+SCALE_RUNGS = ("torus3d", "cubicle", "pose50k", "dubrovnik", "ladybug", "venice")
+SCALE_BA = ("dubrovnik", "ladybug", "venice")
+GiB = 2 ** 30
+# half the card's 80 GB: a scale run reserving more is a fault to chase
+SCALE_RESERVED_GIB = 40
+
+
+def solve_counts():
+    """The library's counts of CR solves, refinements and retries
+    (``linalg/banded.py``) and of PCG solves and iterations
+    (``linalg/schur.py``): exact over python-mode solves."""
+    from apex_tpu_torch.linalg import banded, schur
+
+    return dict(cr_solves=banded.cr_solves, cr_refines=banded.cr_refines,
+                cr_retries=banded.cr_retries, pcg_calls=schur.pcg_calls,
+                pcg_iterations=schur.pcg_iterations)
+
+
+def counts_line(before, lm_iterations):
+    n = {k: v - before[k] for k, v in solve_counts().items()}
+    return dict(n, pcg_iterations_per_lm_iteration=n["pcg_iterations"] / lm_iterations,
+                cr_retries_per_lm_iteration=n["cr_retries"] / lm_iterations)
+
+
+def port_frame(frames):
+    """The innermost frame of the port in an allocation's stack, as
+    ``module path:line function``."""
+    for f in frames:
+        name = f["filename"].replace("\\", "/")
+        if "apex_tpu_torch/" in name:
+            return f"{name.split('apex_tpu_torch/')[-1]}:{f['line']} {f['name']}"
+    return "outside the port"
+
+
+def graph_memory_trace(solve, top=6):
+    """``solve()`` (a first jit solve: each program's warm-up, then its
+    capture into the problem's graph pool) with the allocator's history
+    recorded: (its result, a dict). The dict has the peak reserved bytes
+    over the solve, and for the graph pool (the segments of a private pool
+    after the solve) and for the default pool the peak of live bytes, with
+    the ``top`` lines of the port that allocated most of the bytes live at
+    that peak; and the pool's bytes still allocated after the solve, by
+    line: what the captured programs keep alive."""
+    import bisect
+
+    import torch
+
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.memory._record_memory_history(stacks="python", max_entries=4_000_000,
+                                             clear_history=True)
+    out = solve()
+    torch.cuda.synchronize()
+    snap = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    pool = sorted((sg["address"], sg["address"] + sg["total_size"]) for sg in snap["segments"]
+                  if tuple(sg["segment_pool_id"]) != (0, 0))
+    starts = [a for a, _ in pool]
+
+    def in_pool(addr):
+        k = bisect.bisect_right(starts, addr) - 1
+        return k >= 0 and addr < pool[k][1]
+
+    def replay(stop=None):
+        """Live blocks after the events up to ``stop`` (per pool); without
+        ``stop``, the index of each pool's peak of live bytes and the peak
+        reserved bytes."""
+        live, totals, peak = {}, {True: 0, False: 0}, {True: (0, -1), False: (0, -1)}
+        reserved = peak_reserved = reserved0
+        for i, ev in enumerate(events):
+            action, addr, size = ev["action"], ev["addr"], ev["size"]
+            if action == "segment_alloc":
+                reserved += size
+                peak_reserved = max(peak_reserved, reserved)
+            elif action == "segment_free":
+                reserved -= size
+            elif action == "alloc":
+                g = in_pool(addr)
+                if stop is not None and i > stop[g]:
+                    continue
+                live[addr] = (size, ev["frames"], g)
+                totals[g] += size
+                if totals[g] > peak[g][0]:
+                    peak[g] = (totals[g], i)
+            elif action == "free_completed" and addr in live:
+                g = live[addr][2]
+                if stop is not None and i > stop[g]:
+                    continue
+                totals[g] -= live.pop(addr)[0]
+        return live, peak, peak_reserved
+
+    events = snap["device_traces"][0]
+    _, peak, peak_reserved = replay()
+    live, _, _ = replay({g: peak[g][1] for g in peak})
+    peaks = {g: (peak[g][0], [v for v in live.values() if v[2] == g]) for g in peak}
+
+    def by_line(blocks):
+        lines = {}
+        for size, frames, _ in blocks:
+            where = port_frame(frames)
+            lines[where] = lines.get(where, 0) + size
+        return [[where, size / GiB] for where, size in
+                sorted(lines.items(), key=lambda kv: -kv[1])[:top]]
+
+    pool_kept = [(b["size"], b.get("frames", []), True)
+                 for sg in snap["segments"] if tuple(sg["segment_pool_id"]) != (0, 0)
+                 for b in sg["blocks"] if b["state"] == "active_allocated"]
+    return out, dict(
+        peak_reserved_gib=peak_reserved / GiB,
+        graph_pool_reserved_gib=sum(b - a for a, b in pool) / GiB,
+        graph_pool_peak_live_gib=peaks[True][0] / GiB,
+        graph_pool_peak_by_line_gib=by_line(peaks[True][1]),
+        graph_pool_kept_gib=sum(b[0] for b in pool_kept) / GiB,
+        graph_pool_kept_by_line_gib=by_line(pool_kept),
+        default_pool_peak_live_gib=peaks[False][0] / GiB,
+        default_pool_peak_by_line_gib=by_line(peaks[False][1]))
+
+
+def peak_memory(label):
+    """Peak allocated and reserved GiB since the last ``release_cuda``. A
+    run that reserves more than SCALE_RESERVED_GIB fails."""
+    import torch
+
+    out = dict(max_memory_allocated_gib=torch.cuda.max_memory_allocated() / GiB,
+               max_memory_reserved_gib=torch.cuda.max_memory_reserved() / GiB)
+    if out["max_memory_reserved_gib"] > SCALE_RESERVED_GIB:
+        raise AssertionError(f"{label}: {out}, above {SCALE_RESERVED_GIB} GiB")
+    return out
+
+
+def release_cuda():
+    """Drop the memory of solvers and graphs no longer referenced, so that
+    each run's peak and reserved bytes are its own."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def scale_run(rung, built, mode, runs, ba, profile=False):
+    """One dtype and mode of a scale rung through the ladder's solve
+    function (the first solve timed apart, then ``runs`` timed solves):
+    (the ``Solved``, its line, kernel launches, LM iterations). python mode
+    counts the CR solves and retries and the PCG iterations; jit mode its graphs, host
+    reads and graph memory; ``profile`` adds one profiled solve."""
+    import torch
+
+    from apex_tpu_torch.benches import ladder
+    from apex_tpu_torch.kernels import landmark_blocks as lb
+
+    release_cuda()
+    reserved0 = torch.cuda.memory_reserved()
+    before, counts = graph_counters(), solve_counts()
+    solved = rung.solve(built, runs=runs, mode=mode)
+    n = {k: v - before[k] for k, v in graph_counters().items()}
+    res, first = solved.result, solved.first_result
+    iterations = first.iterations + (res.iterations if runs else 0)
+    launches = n["eager_kernel_launches"] + n["replayed_kernel_launches"]
+    line = dict(mode=mode, status=res.status.name, iterations=res.iterations,
+                first_solve_iterations=first.iterations, initial_cost=res.initial_cost,
+                final_cost=res.final_cost, first_solve_seconds=solved.first_seconds,
+                **peak_memory(f"{built.cp.total_dof} DOF, {mode}"))
+    if runs:
+        line.update(solve_seconds=solved.seconds,
+                    seconds_per_lm_iteration=solved.seconds / res.iterations,
+                    python_run_to_run_spread=abs(res.final_cost - first.final_cost)
+                    / abs(res.final_cost))
+    if ba:
+        line.update(rmse_initial=ladder.rmse(res.initial_cost, built.data.num_observations),
+                    rmse_final=ladder.rmse(res.final_cost, built.data.num_observations),
+                    kernel_launches=launches,
+                    kernel_launches_per_lm_iteration=launches / iterations)
+    if mode == "python":
+        line.update(counts_line(counts, iterations))
+        if ba and lb.launches - before["eager_kernel_launches"] != iterations:
+            raise AssertionError(f"python mode: {launches} kernel launches for {iterations} "
+                                 "LM iterations")
+    else:
+        run = solved.solver._jit_cache[built.cp]
+        line.update(capture_seconds=run.capture_seconds, graphs=n["graphs"],
+                    replays_per_lm_iteration=n["replays"] / iterations,
+                    host_reads_per_lm_iteration=n["host_reads"] / iterations,
+                    uncaptured_calls_per_lm_iteration=n["uncaptured_calls"] / iterations)
+        if n["captures"] != 2:
+            raise AssertionError(f"jit: {n['captures']} captures")
+        if ba and launches < iterations:
+            raise AssertionError(f"jit: {launches} launches for {iterations} LM iterations")
+        if profile:
+            before = graph_counters()
+            profiled = profile_solve(lambda: solved.solver.optimize(built.cp))
+            p_launches = sum(graph_counters()[k] - before[k]
+                             for k in ("eager_kernel_launches", "replayed_kernel_launches"))
+            launches += p_launches
+            iterations += profiled["iterations"]
+            line["profile"] = dict(
+                device_idle_share=profiled["device_idle_share"],
+                iterations=profiled["iterations"],
+                device_events_per_lm_iteration=profiled["device_events_per_lm_iteration"],
+                top_device_ops_ms=profiled["top_device_ops_ms"][:5],
+                landmark_kernel_events=profiled["landmark_kernel_events"],
+                landmark_kernel_us_per_launch=profiled["landmark_kernel_ms"] * 1e3
+                / max(profiled["landmark_kernel_events"], 1),
+                kernel_launches=p_launches)
+            if profiled["landmark_kernel_events"] < profiled["iterations"]:
+                raise AssertionError(f"profile: {profiled['landmark_kernel_events']} landmark "
+                                     f"kernel events for {profiled['iterations']} LM iterations")
+        release_cuda()
+        line["graph_memory_reserved_gib"] = (torch.cuda.memory_reserved() - reserved0) / GiB
+    return solved, line, (launches if ba else 0), (iterations if ba else 0)
+
+
+def scale_gates(name, label, res, python=None, spread=0.0):
+    """f64: the JAX package's initial cost (rtol 1e-12), and its status,
+    iterations and final cost (rtol 1e-8) where its CPU solve was run; jit
+    mode also python mode's iterations, status and final cost (rtol 1e-10,
+    or 10x python mode's own spread)."""
+    import numpy as np
+
+    initial, final = SCALE_JAX[name]
+    np.testing.assert_allclose(res.initial_cost, initial, rtol=1e-12,
+                               err_msg=f"{name} {label}: initial cost")
+    if final is not None:
+        status, iterations, cost = final
+        if (res.status.name, res.iterations) != (status, iterations):
+            raise AssertionError(f"{name} {label}: {res.summary()}, the JAX package: {final}")
+        np.testing.assert_allclose(res.final_cost, cost, rtol=1e-8,
+                                   err_msg=f"{name} {label}: final cost")
+    if python is not None:
+        if (res.iterations, res.status) != (python.iterations, python.status):
+            raise AssertionError(f"{name} {label}: {res.summary()} vs python {python.summary()}")
+        np.testing.assert_allclose(res.final_cost, python.final_cost,
+                                   rtol=max(1e-10, 10.0 * spread),
+                                   err_msg=f"{name} {label} against python mode")
+
+
+def scale_quality(name, solved):
+    """bench.py's gates: the pose-graph rungs raise inside their solve
+    (converged, 97% reduction); dubrovnik's and venice's RMSE gates;
+    ladybug's five LM iterations with the cost falling."""
+    res = solved.result
+    if not solved.gate_passed:
+        raise AssertionError(f"{name}: {solved.row.get('note')}")
+    if name == "ladybug" and not (res.iterations == 5 and res.final_cost < res.initial_cost):
+        raise AssertionError(f"ladybug: {res.summary()}")
+
+
+def scale_explicit(built):
+    """dubrovnik through ``schur`` (explicit below 4096 camera DOF), once in
+    f64 python mode with dubrovnik's config: RMSE below 0.60, one kernel
+    launch per LM iteration; (line, launches, iterations)."""
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.benches import ladder
+    from apex_tpu_torch.kernels import landmark_blocks as lb
+
+    release_cuda()
+    target_cost = (0.533 ** 2) * built.data.num_observations
+    cfg = ladder._ba_config("python", 30, min_cost_threshold=target_cost)
+    cfg.linear_solver_type = "schur"
+    lm = apx.LevenbergMarquardt(cfg)
+    before = lb.launches
+    res, seconds, _ = counted_solve(lm, built.cp)
+    launches = lb.launches - before
+    ctx = lm._step_cache[built.cp].solve_fn.schur_context
+    r1 = ladder.rmse(res.final_cost, built.data.num_observations)
+    line = dict(mode="python", solver="schur", variant=ctx.variant, Dc=ctx.Dc,
+                pairs=sum(int(ia.numel()) for ia, _ in ctx.pair_indices),
+                status=res.status.name, iterations=res.iterations, final_cost=res.final_cost,
+                rmse_final=r1, solve_seconds=seconds, kernel_launches=launches,
+                **peak_memory("dubrovnik schur"))
+    if ctx.variant != "sparse" or not r1 < 0.60 or launches != res.iterations:
+        raise AssertionError(f"dubrovnik schur: {line}")
+    return line, launches, res.iterations
+
+
+def scale_fixed_iterations(built, iterations=5):
+    """venice f64 with ladybug's config (``iterations`` LM iterations, 15
+    PCG iterations, no cost threshold), so that memory that grows from one
+    LM iteration to the next shows: python mode (a first solve and one
+    more), then jit mode (its first solve under ``graph_memory_trace``, one
+    more); peak allocated and reserved memory per mode. Gates: the cost
+    falls below the 0.46 px gate, one kernel launch per LM iteration in
+    python mode, jit mode python mode's iterations, status and cost (rtol
+    1e-10 or 10x python mode's spread). (line, launches, LM iterations)"""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.benches import ladder
+    from apex_tpu_torch.kernels import landmark_blocks as lb
+
+    n_obs = built.data.num_observations
+    line, launches, lm_iterations = {}, 0, 0
+    for mode in ("python", "jit"):
+        release_cuda()
+        lm = apx.LevenbergMarquardt(ladder._ba_config(mode, iterations, pcg_max_iterations=15))
+        before, counts = graph_counters(), solve_counts()
+        if mode == "python":
+            res, first_s, seconds, first = ladder.timed(lm, built.cp, 1)
+            spread = abs(res.final_cost - first.final_cost) / abs(res.final_cost)
+            python = res
+        else:
+            first, trace = graph_memory_trace(lambda: lm.optimize(built.cp))
+            t0 = time.perf_counter()
+            res = lm.optimize(built.cp)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        n = {k: v - before[k] for k, v in graph_counters().items()}
+        its = first.iterations + res.iterations
+        run = n["eager_kernel_launches"] + n["replayed_kernel_launches"]
+        launches, lm_iterations = launches + run, lm_iterations + its
+        out = dict(status=res.status.name, iterations=res.iterations,
+                   final_cost=res.final_cost, rmse_final=ladder.rmse(res.final_cost, n_obs),
+                   solve_seconds=seconds, seconds_per_lm_iteration=seconds / res.iterations,
+                   kernel_launches=run, **peak_memory(f"venice {iterations} iterations, {mode}"))
+        if not (res.final_cost < res.initial_cost and out["rmse_final"] < 0.46):
+            raise AssertionError(f"venice {iterations} iterations, {mode}: {out}")
+        if mode == "python":
+            out.update(counts_line(counts, its), first_solve_seconds=first_s,
+                       python_run_to_run_spread=spread)
+            if run != its:
+                raise AssertionError(f"venice python: {run} launches for {its} LM iterations")
+        else:
+            out.update(trace, capture_seconds=lm._jit_cache[built.cp].capture_seconds,
+                       host_reads_per_lm_iteration=n["host_reads"] / its)
+            if (res.iterations, res.status) != (python.iterations, python.status):
+                raise AssertionError(f"venice jit: {res.summary()} vs python {python.summary()}")
+            np.testing.assert_allclose(res.final_cost, python.final_cost,
+                                       rtol=max(1e-10, 10.0 * spread),
+                                       err_msg="venice jit against python mode")
+            if run < its:
+                raise AssertionError(f"venice jit: {run} launches for {its} LM iterations")
+        line[f"f64_{mode}"] = out
+        del lm, res, first
+    release_cuda()
+    return line, launches, lm_iterations
+
+
+def unseen_landmarks_kept(built, res):
+    """The landmarks no camera observes (zero Hpp blocks, inverted by the
+    kernel's regularization) end at their initial values, bit for bit."""
+    import numpy as np
+
+    seen = np.bincount(built.data.point_indices, minlength=built.data.num_points) > 0
+    P = built.data.num_points
+    # the bucketed layout numbers unseen landmarks last
+    names = [f"pt_{j:05d}" for j in range(int(seen.sum()), P)]
+    moved = [n for n in names if not np.array_equal(res.variables[n],
+                                                    built.problem._values[n])]
+    if moved or not all(np.isfinite(res.variables[n]).all() for n in names):
+        raise AssertionError(f"{len(moved)} of {len(names)} unseen landmarks moved")
+    return len(names)
+
+
+def phase_scale(smi, cpu):
+    """Phase 35: the JAX package's scale ladder on the card, through the
+    ladder's build and solve functions (``apex_tpu_torch.benches.ladder``),
+    at full size: torus3d, cubicle and pose50k (LM ``sparse_cholesky``),
+    dubrovnik, ladybug and venice (``schur_implicit``), each f64 in python
+    then jit mode (the first solve timed apart, then one timed solve), f32
+    in jit mode and once more in python mode for its counts; dubrovnik also
+    through ``schur`` (explicit) once. One line per rung as it ends. Gates:
+    ``scale_gates`` (f64), ``scale_quality`` (every dtype and mode), one
+    kernel launch per BA LM iteration in python mode; venice's unseen
+    landmarks kept; one profiled venice f64 jit solve with the kernel in it
+    once per LM iteration; ``scale_fixed_iterations`` at venice;
+    ``graph_memory_trace`` of pose50k's first f64 jit solve. Returns (kernel
+    launches, BA LM iterations)."""
+    import dataclasses
+
+    import torch
+
+    from apex_tpu_torch.benches import ladder
+
+    launches = iterations = 0
+    for name in SCALE_RUNGS:
+        t0 = time.perf_counter()
+        rung, ba = ladder.RUNGS[name], name in SCALE_BA
+        built = rung.build(torch.float64, "cuda")
+        line = dict(phase="scale", rung=name, nvidia_smi=smi, host_cpu=cpu,
+                    D=built.cp.total_dof, build_seconds=built.build_seconds,
+                    compile_seconds_f64=built.compile_seconds)
+        if ba:
+            line.update(cameras=built.data.num_cameras, points=built.data.num_points,
+                        observations=built.data.num_observations,
+                        rows=built.cp.total_residual_dim // 2)
+        else:
+            line.update(poses=built.data.num_vertices, edges=built.data.num_edges)
+        t1 = time.perf_counter()
+        built.cp.values_dict(built.cp.initial_values())
+        line["values_dict_seconds"] = time.perf_counter() - t1
+
+        python, line["f64_python"], n, its = scale_run(rung, built, "python", 1, ba)
+        launches, iterations = launches + n, iterations + its
+        scale_gates(name, "f64 python", python.result)
+        scale_gates(name, "f64 python (first)", python.first_result)
+        scale_quality(name, python)
+        spread = line["f64_python"]["python_run_to_run_spread"]
+        if name == "venice":
+            line["unseen_landmarks"] = unseen_landmarks_kept(built, python.result)
+        reference = python.result
+        del python
+        jit, line["f64_jit"], n, its = scale_run(rung, built, "jit", 1, ba,
+                                                 profile=name == "venice")
+        launches, iterations = launches + n, iterations + its
+        scale_gates(name, "f64 jit", jit.result, reference, spread)
+        scale_quality(name, jit)
+        del jit
+        if name == "dubrovnik":
+            line["f64_schur"], n, its = scale_explicit(built)
+            launches, iterations = launches + n, iterations + its
+        if name == "venice":
+            line["f64_5_iterations"], n, its = scale_fixed_iterations(built)
+            launches, iterations = launches + n, iterations + its
+        if name == "pose50k":
+            release_cuda()
+            # [1]: the solver and its graphs are dropped right away
+            line["f64_jit_memory_trace"] = graph_memory_trace(
+                lambda: rung.solve(built, runs=0, mode="jit"))[1]
+
+        release_cuda()
+        t1 = time.perf_counter()
+        cp32 = built.problem.compile(dtype=torch.float32, device=built.cp.device)
+        built = dataclasses.replace(built, cp=cp32, compile_seconds=time.perf_counter() - t1)
+        line["compile_seconds_f32"] = built.compile_seconds
+        f32, line["f32_jit"], n, its = scale_run(rung, built, "jit", 1, ba)
+        launches, iterations = launches + n, iterations + its
+        scale_quality(name, f32)
+        del f32
+        # counts only: the first solve of python mode
+        f32, line["f32_python"], n, its = scale_run(rung, built, "python", 0, ba)
+        launches, iterations = launches + n, iterations + its
+        del f32, built
+        line["seconds"] = time.perf_counter() - t0
+        emit(line)
+    return launches, iterations
+
+
 def main():
     import tempfile
 
@@ -3201,6 +3699,12 @@ def main():
     for P in (65_132, 993_923):
         for dtype in (torch.float32, torch.float64):
             measured[(P, dtype)] = phase_kernel(P, dtype)
+    # the landmark counts of the dubrovnik and ladybug rungs (phase 35): the
+    # bitwise gate alone
+    for P in (226_730, 156_502):
+        for dtype in (torch.float32, torch.float64):
+            emit(dict(phase="kernel", P=P, dtype=str(dtype).replace("torch.", ""),
+                      max_abs_err=kernel_bitwise(P, dtype)[1], bitwise=True))
 
     phase_small_parity()
     ds, ba_problem, launches, iterations, implicit = phase_full_slice()
@@ -3286,6 +3790,15 @@ def main():
     if lb.launches != launches_before:
         raise AssertionError("examples / bags / multidevice: kernel launches in the smoke's "
                              "own process")
+    # the scale path's kernel count, from 0: python, jit and profiled solves
+    lb.launches = 0
+    graphs.reset_counters()
+    t0 = time.perf_counter()
+    launches_scale, iterations_scale = phase_scale(smi, host_cpu())
+    seconds["scale"] = time.perf_counter() - t0
+    if lb.launches + graphs.kernel_launches != launches_scale:
+        raise AssertionError(f"scale: {lb.launches} + {graphs.kernel_launches} kernel "
+                             f"launches counted, {launches_scale} summed over its solves")
     emit(dict(phase="seconds", **seconds))
 
     main_shape = measured[(65_132, torch.float64)]
@@ -3295,11 +3808,12 @@ def main():
         "source": "apex_tpu_torch/csrc/landmark_blocks.cu",
         "replaces": "apex_tpu/kernels/landmark_blocks.py:101",
         "launches": launches + launches_camera + launches_support + launches_examples
-        + launches_md,
+        + launches_md + launches_scale,
         "launches_per_lm_iteration": (
-            launches + launches_camera + launches_support + launches_examples + launches_md) / (
+            launches + launches_camera + launches_support + launches_examples + launches_md
+            + launches_scale) / (
             iterations + iterations_camera + iterations_support + iterations_examples
-            + iterations_md),
+            + iterations_md + iterations_scale),
         "launches_camera": launches_camera,
         "launches_per_lm_iteration_camera": launches_camera / iterations_camera,
         "launches_support": launches_support,
@@ -3310,6 +3824,8 @@ def main():
         "launches_per_lm_iteration_jit": launches_jit / iterations_jit,
         "launches_multidevice": launches_md,
         "launches_per_lm_iteration_multidevice": launches_md / iterations_md,
+        "launches_scale": launches_scale,
+        "launches_per_lm_iteration_scale": launches_scale / iterations_scale,
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["device_us"] / 1e3,
         "plain_ms": main_shape["plain_ms"],

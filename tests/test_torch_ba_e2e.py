@@ -203,6 +203,8 @@ def test_port_imports_no_jax():
         "import apex_tpu_torch.examples.visualize_optimization\n"
         "import apex_tpu_torch.parallel, apex_tpu_torch.parallel.schur_partitioned\n"
         "import apex_tpu_torch.graft_entry, apex_tpu_torch.examples.multichip_ba\n"
+        "import apex_tpu_torch.benches.ladder, apex_tpu_torch.benches.odometry_pose_benchmark\n"
+        "import apex_tpu_torch.benches.bundle_adjustment_benchmark\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'apex_tpu')]\n"
         "assert not bad, bad\n"
         "import torch\n"

@@ -149,3 +149,46 @@ def test_failed_cholesky_is_nan_not_an_exception():
     assert torch.isnan(L[1]).all()
     torch.testing.assert_close(L[0], torch.eye(4, dtype=torch.float64) * 2.0 ** 0.5)
     torch.testing.assert_close(L[2], L[0])
+
+
+@pytest.mark.parametrize("solver", ["sparse_cholesky", "dense_cholesky"])
+def test_python_mode_frees_each_iterations_system(solver, monkeypatch):
+    """Each LM iteration's assembled system (the band buffer, the dense H)
+    is freed when the iteration ends, without the garbage collector: the
+    retry ladder holding it forms no reference cycle. Before, every
+    iteration's band stayed alive until a collection (6 bands, 17 GB, in
+    python mode at pose50k's D = 300,000 on the card)."""
+    import gc
+    import weakref
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.core.problem import CompiledProblem
+
+    systems = []
+    assemble, assemble_normal = banded.BandedNormalAssembler.assemble, \
+        CompiledProblem.assemble_normal
+
+    def keep_band(self, values):
+        out = assemble(self, values)
+        systems.append(weakref.ref(out[0]._base))
+        return out
+
+    def keep_h(self, values):
+        out = assemble_normal(self, values)
+        systems.append(weakref.ref(out[0]))
+        return out
+
+    monkeypatch.setattr(banded.BandedNormalAssembler, "assemble", keep_band)
+    monkeypatch.setattr(CompiledProblem, "assemble_normal", keep_h)
+    cp = synthetic.synthetic_pose_graph_3d(n_poses=60, rings=3, seed=0).to_problem().compile(
+        device="cpu")
+    lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+        linear_solver_type=solver, max_iterations=5))
+    gc.disable()
+    try:
+        res = lm.optimize(cp)
+        alive = [ref for ref in systems if ref() is not None]
+    finally:
+        gc.enable()
+    assert res.iterations >= 2 and len(systems) >= res.iterations
+    assert not alive, f"{len(alive)} of {len(systems)} systems alive after the solve"

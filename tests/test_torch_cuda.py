@@ -46,7 +46,7 @@ T = lb.TILE
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("P", [1, 2, 3, T - 1, T, T + 1, 2 * T + 3, 65_132])
+@pytest.mark.parametrize("P", [1, 2, 3, T - 1, T, T + 1, 2 * T + 3, 65_132, 156_502, 226_730])
 def test_kernel_matches_plain(card, dtype, P):
     """Every tile count and ragged edge: bitwise the plain version, one
     launch per call."""
@@ -870,3 +870,28 @@ def test_partitioned_step_nccl_matches_cpu(card):
     assert gpu["partitioned"] and cpu["partitioned"]
     assert (gpu["launches"], cpu["launches"]) == (5, 0)
     np.testing.assert_allclose(gpu["costs"], cpu["costs"], rtol=1e-8)
+
+
+def test_venice_rung_reduced_on_the_card(card):
+    """The ladder's venice rung (``solve_venice``: 8 LM iterations, 15 PCG
+    iterations, stop at 0.46 px) on a reduced venice-shaped problem built
+    by the ladder, f64: in python mode one kernel launch per LM iteration;
+    jit mode gives python mode's iterations and status, its final cost
+    within rtol 1e-10 (or 10x python mode's own spread), launches the
+    kernel inside its graphs, and passes the gate."""
+    from apex_tpu_torch.benches import ladder
+    from apex_tpu_torch.optim import graphs
+
+    built = ladder.build_ba(torch.float64, card, n_cameras=24, n_points=20_000,
+                            obs_per_camera=3000, pixel_noise=0.3)
+    before = lb.launches
+    python = ladder.solve_venice(built, runs=1, mode="python")
+    assert lb.launches - before == python.first_result.iterations + python.result.iterations
+    graphs.reset_counters()
+    jit = ladder.solve_venice(built, runs=1, mode="jit")
+    assert graphs.kernel_launches >= jit.result.iterations
+    ref, res = python.result, jit.result
+    assert python.gate_passed and jit.gate_passed
+    assert (res.iterations, res.status) == (ref.iterations, ref.status)
+    spread = abs(ref.final_cost - python.first_result.final_cost) / ref.final_cost
+    np.testing.assert_allclose(res.final_cost, ref.final_cost, rtol=max(1e-10, 10.0 * spread))

@@ -346,6 +346,8 @@ def test_port_imports_no_jax():
         "import apex_tpu_torch.examples.loss_function_comparison\n"
         "import apex_tpu_torch.examples.visualize_graph_file\n"
         "import apex_tpu_torch.examples.visualize_optimization\n"
+        "import apex_tpu_torch.benches.ladder, apex_tpu_torch.benches.odometry_pose_benchmark\n"
+        "import apex_tpu_torch.benches.bundle_adjustment_benchmark\n"
         "g = apex_tpu_torch.io.synthetic.synthetic_pose_graph_2d(20).to_problem(fix_first=True)\n"
         "for solver in ('sparse_qr', 'pcg'):\n"
         "    apex_tpu_torch.DogLeg(apex_tpu_torch.DogLegConfig()).optimize(\n"
