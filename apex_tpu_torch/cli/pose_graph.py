@@ -13,7 +13,7 @@ for ``cuda`` on a machine without a card raises. ``--profile`` writes a
 ``torch.profiler`` trace of the last solve under the system's temporary
 directory (``utils.profiling.trace``). ``--jit`` runs every optimizer with
 every linear solver in ``mode="jit"`` (the whole solve on the device,
-replayed CUDA graphs on a card). ``--dataset NAME`` loads a registry entry
+one CUDA graph with conditional nodes on a card). ``--dataset NAME`` loads a registry entry
 (``io.datasets``) from the cache, ``$APEX_TPU_DATA_DIR`` or
 ``~/.cache/apex_tpu``, downloading it where it is absent. Progress goes to
 stderr through ``utils.init_logger`` (level from ``APEX_LOG``).
@@ -66,7 +66,7 @@ def build_parser():
     p.add_argument("--profile", action="store_true",
                    help=f"write a torch.profiler trace to {TRACE_PATH}")
     p.add_argument("--jit", action="store_true",
-                   help="whole solve on the device (every optimizer; replayed CUDA graphs on a card)")
+                   help="whole solve on the device (every optimizer; one CUDA graph on a card)")
     p.add_argument("--verbose", action="store_true", help="per-iteration table")
     p.add_argument("--platform", default="cuda", choices=["cpu", "cuda"],
                    help="torch device (default cuda; no fallback to cpu)")

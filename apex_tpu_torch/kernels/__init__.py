@@ -1,2 +1,4 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version (see ``kernels/landmark_blocks.py``)."""
+version (``landmark_blocks``, ``spd_inverse``); the CUDA graph builder that
+jit mode's conditional nodes need (``graph_conditional``); and their shared
+``nvcc`` build (``build``)."""

@@ -10,27 +10,25 @@ conditioned regularized inverse of symmetric 3x3 blocks, ``[P,3,3] ->
 ``invert_landmark_blocks`` launches the kernel for every CUDA tensor, f32
 and f64, at every size, and counts each launch in ``launches``. Under CUDA
 graph capture the launch is recorded into the graph, not made: it counts in
-``captured`` instead, and each replay of that graph counts its recorded
-launches (``optim/graphs.py``). It takes the plain version only for a
-tensor on the CPU. The kernel is built with ``nvcc``
-into ``build/apex_tpu_torch/`` at first use and bound with ``ctypes``.
+``captured`` instead, and ``optim/graphs.py`` counts the launches of the
+graphs it runs, from its conditional nodes' device counts. It takes the
+plain version only for a tensor on the CPU. The kernel is built with
+``nvcc`` into ``build/apex_tpu_torch/`` at first use and bound with
+``ctypes`` (``kernels/build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "landmark_blocks.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+from . import build as _build
+
+SOURCE = _build.CSRC / "landmark_blocks.cu"
+# -fmad=false keeps each product rounded as in the plain version: the
+# output equals it bit for bit
+NVCC_FLAGS = (*_build.NVCC_FLAGS, "-fmad=false")
 
 # Kernel launches made by invert_landmark_blocks since import (or since a
 # caller last set it to 0), and launches it recorded into CUDA graphs.
@@ -41,37 +39,18 @@ captured = 0
 # tiles, and the masked edge takes the last P mod TILE blocks.
 TILE = 256
 
-# {dtype: C entry point} and PyTorch's current-stream lookup, bound by build().
+# {dtype: C entry point} and the launch-configuration query, bound by build().
 _fns: dict = {}
-_stream = None
 _config = None
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise FileNotFoundError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
 def build() -> dict:
     """Compile the kernel (once per source and flag set), load it and bind
     its entry points: ``{dtype: C function}``."""
-    global _stream, _config
+    global _config
     if _fns:
         return _fns
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"liblandmark_blocks_{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = _build.shared_library("landmark_blocks", NVCC_FLAGS)
     for dtype, name in ((torch.float32, "invert_landmark_blocks_f32"),
                         (torch.float64, "invert_landmark_blocks_f64")):
         fn = getattr(lib, name)
@@ -82,9 +61,6 @@ def build() -> dict:
     _config = lib.invert_landmark_blocks_config
     _config.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     _config.restype = ctypes.c_int
-    # the raw cudaStream_t of PyTorch's current stream on a device index, as
-    # an int (what Triton's launcher uses); no torch.cuda.Stream is made
-    _stream = torch._C._cuda_getCurrentRawStream
     return _fns
 
 
@@ -193,7 +169,7 @@ def invert_landmark_blocks(Hpp):
                          "(the kernel's bulk copies need it)")
     fn = (_fns or build())[Hpp.dtype]
     index = Hpp.get_device()
-    err = fn(Hpp.data_ptr(), out.data_ptr(), P, index, _stream(index))
+    err = fn(Hpp.data_ptr(), out.data_ptr(), P, index, _build.current_stream(index))
     if err != 0:
         raise RuntimeError(f"invert_landmark_blocks kernel launch failed: CUDA error {err}")
     if torch.cuda.is_current_stream_capturing():

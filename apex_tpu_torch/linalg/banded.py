@@ -19,7 +19,7 @@ A failed Cholesky gives NaN for its batch entry, never an exception: the
 5-stage retry ladder tests the solve's ``isfinite``. The refinement gate
 and the ladder are ``graphs.cond_update`` / ``graphs.ladder``, the
 reference's ``lax.cond`` and ``while_loop``: a host read each in python
-mode, a branch between graphs in a captured jit step. Spans named
+mode, IF nodes of a captured jit step on a card. Spans named
 ``banded.*`` and ``cr.*`` mark the layers for ``torch.profiler``.
 """
 
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..optim import graphs
 from ..optim.graphs import cond_update, ladder, while_update
 
 # Widest block bandwidth the banded path takes; above it LM's sparse_cholesky
@@ -74,11 +75,59 @@ def block_bandwidth(cp) -> int:
     return W
 
 
+# The widest matrix that _cholesky hands to one cuSOLVER potrf in a step
+# that is captured. A wider potrf (the 20^3 lattice's 20,262-column core)
+# calls cuBLAS through a handle of cuSOLVER's own, which allocates memory
+# inside a CUDA graph capture, and a conditional node's body can hold no
+# allocation; so there a wider matrix is factored by panels of this width.
+# chip_smoke.py's capture_census phase checks both on the card.
+CHOLESKY_PANEL = 8192
+
+
 def _cholesky(A):
     """Lower Cholesky factor of the symmetrized A, batched; a batch entry
-    that is not positive definite comes back all NaN."""
+    that is not positive definite comes back all NaN. A single CUDA matrix
+    wider than ``CHOLESKY_PANEL`` in a step being captured (or warmed up for
+    it) is factored by panels (``cholesky_panels``); eager calls, python
+    mode's, take one potrf at any width. The NaN goes in in place: the
+    20^3 lattice's factor alone is 3.3 GB in f64."""
+    if (A.dim() == 2 and A.shape[-1] > CHOLESKY_PANEL and A.device.type == "cuda"
+            and graphs.recording()):
+        return cholesky_panels((A + A.mT) / 2)
     L, info = torch.linalg.cholesky_ex((A + A.mT) / 2)
-    return torch.where((info != 0)[..., None, None], torch.nan, L)
+    return L.masked_fill_((info != 0)[..., None, None], torch.nan)
+
+
+def cholesky_panels(S, panel=CHOLESKY_PANEL):
+    """The lower Cholesky factor of the symmetric matrix S, overwritten in
+    place, by panels of ``panel`` columns, right-looking: each panel's
+    diagonal block by ``cholesky_ex``, the panel below it by a triangular
+    solve, the trailing matrix updated by one matrix product, every call
+    through PyTorch's own cuBLAS handle; all NaN where S is not positive
+    definite."""
+    n = S.shape[-1]
+    bad = torch.zeros((), dtype=torch.bool, device=S.device)
+    for j in range(0, n, panel):
+        e = min(j + panel, n)
+        Ljj, info = torch.linalg.cholesky_ex(S[j:e, j:e])
+        bad = bad | (info != 0)
+        S[j:e, j:e] = Ljj
+        if e < n:
+            L21 = torch.linalg.solve_triangular(Ljj.mT, S[e:, j:e], upper=True, left=False)
+            S[e:, j:e] = L21
+            S[e:, e:].addmm_(L21, L21.mT, alpha=-1.0)
+    return S.tril_().masked_fill_(bad, torch.nan)
+
+
+def cho_solve(L, B):
+    """(L L^T)^{-1} B from the lower factor L: what ``torch.cholesky_solve``
+    computes, as two triangular solves. On the card those go to cuBLAS
+    through PyTorch's handle, whose workspace is set; cuSOLVER's ``potrs``
+    calls cuBLAS through a handle of its own without one, which allocates
+    inside a CUDA graph capture, and a conditional node's body can hold no
+    allocation."""
+    return torch.linalg.solve_triangular(
+        L.mT, torch.linalg.solve_triangular(L, B, upper=False), upper=True)
 
 
 def damping_tensor(damping, dtype, device):
@@ -178,7 +227,7 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
                 A4[idx[1:], :, idx[:-1], :] = Cg[1:]
                 A4[idx[:-1], :, idx[1:], :] = Cg[1:].mT
             Lc = _cholesky(A4.reshape(nb * m, nb * m))
-            xe = torch.cholesky_solve(bv.reshape(-1, 1), Lc).reshape(nb, m)
+            xe = cho_solve(Lc, bv.reshape(-1, 1)).reshape(nb, m)
         with record_function("cr.back_substitute"):
             for entry in reversed(levels):
                 if entry[0] == "recompute":

@@ -20,7 +20,9 @@ Memory is O(n m^2), never the dense [D, D] H. QR solves (H + damping I)
 dx = b without squaring the system a second time, so a singular H is fine
 whenever damping > 0; at zero damping the escalating-shift ladder of the
 Cholesky tiers takes over (``banded.shift_ladder``: in a jit step one
-captured sweep, replayed per stage).
+captured sweep, replayed per stage; cuSOLVER's QR allocates inside a
+capture, so jit mode keeps this solver's LM loop and ladder on the host,
+``optim.lm.QR_HOST_LOOP``).
 
 The sweep is sequential by nature: a Python loop of n small ``qr`` and
 matrix products each way, so at small m the solve is bound by launches.

@@ -6,7 +6,7 @@
 A Cholesky that fails gives NaN, never an exception (``banded._cholesky``:
 ``cholesky_ex`` with NaN where ``info != 0``), and the retry ladder
 (``graphs.ladder``) tests ``isfinite(dx)``: one read-back per test, or in a
-captured jit step a branch between graphs.
+captured jit step IF nodes decided on the device.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..optim.graphs import ladder
-from .banded import BASE_REG, RETRY_STAGES, _cholesky
+from .banded import BASE_REG, RETRY_STAGES, _cholesky, cho_solve
 
 
 def _eye(A):
@@ -22,7 +22,7 @@ def _eye(A):
 
 
 def _cho_solve(A, b):
-    return torch.cholesky_solve(b[:, None], _cholesky(A))[:, 0]
+    return cho_solve(_cholesky(A), b[:, None])[:, 0]
 
 
 def solve_cholesky(H, g, damping=None):

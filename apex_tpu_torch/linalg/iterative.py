@@ -9,8 +9,8 @@ computes
 
 as gathers, batched small products and ``index_add_`` sums: O(K) memory
 instead of O(D^2). The preconditioner is the per-variable block diagonal of
-H + damping I, inverted through ``spd_clamped_inv`` (outside the captured
-graphs in jit mode: ``graphs.uncaptured``).
+H + damping I, inverted through ``spd_clamped_inv`` (the SPD kernel of
+``kernels/spd_inverse.py`` for a CUDA tensor).
 
 Select with ``linear_solver_type="pcg"`` on any optimizer config.
 """
@@ -20,9 +20,9 @@ from __future__ import annotations
 import torch
 
 from ..core.problem import CompiledProblem
+from ..kernels import spd_inverse
 from ..optim import graphs
 from .utils import bmv as _bmv
-from .utils import spd_clamped_inv
 
 
 class IterativeNormalSolver:
@@ -77,8 +77,7 @@ class IterativeNormalSolver:
         for grp, jacs, _ in blocks:
             for s, Js in enumerate(jacs):
                 acc[grp.pool_ids[s]].index_add_(0, grp.indices[s], Js.mT @ Js)
-        # eigh reads its error flag back: not capturable
-        return [graphs.uncaptured(spd_clamped_inv, a) for a in acc]
+        return [spd_inverse.spd_clamped_inv(a) for a in acc]
 
     def _apply_prec(self, inv_blocks, x):
         y = torch.zeros_like(x)
@@ -95,8 +94,8 @@ class IterativeNormalSolver:
         one flag back per iteration, the convergence test. With
         ``sync_free`` (jit mode) the loop is ``graphs.while_update`` over
         chunks of ``graphs.PCG_CHUNK`` iterations, each masked by the
-        device test (a finished PCG stays finished), and reads one flag per
-        chunk: one captured chunk replayed on a card."""
+        device test (a finished PCG stays finished): eagerly one read per
+        chunk, on a card a WHILE node that reads nothing."""
         blocks, g, cost = self._linearize_all(values)
         inv_blocks = self._block_diag_inv(blocks, damping)
         b = -g

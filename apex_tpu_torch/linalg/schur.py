@@ -30,10 +30,11 @@ rounding.
 
 Damping and the LM iteration may be device tensors (jit mode). The
 explicit variant's retry ladder is ``graphs.ladder``; with ``sync_free``
-(jit mode) PCG's continue flag is a ``graphs.cond_update`` per
+(jit mode) PCG is one ``graphs.while_update`` over chunks of
 ``graphs.PCG_CHUNK`` iterations, each iteration masked by a done flag that
-freezes once set, as the reference's ``while_loop``; the preconditioner's
-``eigh`` runs outside captured graphs (``graphs.uncaptured``).
+freezes once set, as the reference's ``while_loop``. The preconditioner's
+blocks are inverted by the SPD kernel of ``kernels/spd_inverse.py`` for a
+CUDA tensor, so a captured step reads nothing back.
 """
 
 from __future__ import annotations
@@ -47,11 +48,11 @@ import torch
 from torch.profiler import record_function
 
 from ..core.problem import CompiledProblem
+from ..kernels import spd_inverse
 from ..kernels.landmark_blocks import invert_landmark_blocks
 from ..optim import graphs
 from .dense import solve_cholesky_with_retry
 from .utils import bmv as _bmv
-from .utils import spd_clamped_inv
 
 
 # PCG solves and their iterations run since import (or since a caller last
@@ -409,13 +410,15 @@ class SchurContext:
         """Entity-block preconditioner of S, inverted: the entity diagonal
         blocks of S with Schur-Jacobi, of H_cc without."""
         acc = self._schur_diagonal(Hcc, Hpp_inv, Ws) if schur_jacobi else Hcc
-        # eigh reads its error flag back: not capturable
-        return graphs.uncaptured(spd_clamped_inv, acc)
+        return spd_inverse.spd_clamped_inv(acc)
 
     def _pcg(self, apply_S, apply_M, b, rtol=None, max_iter=None, x0=None):
         """Block-preconditioned conjugate gradients with f64 recurrence
         scalars. The loop runs on the host and reads one flag per iteration;
-        with ``sync_free`` it reads one per ``graphs.PCG_CHUNK`` iterations.
+        with ``sync_free`` (jit mode) it is one ``graphs.while_update``, the
+        reference's ``while_loop``, over chunks of ``graphs.PCG_CHUNK``
+        iterations, each masked by a done flag that freezes once set, with
+        the iteration a device counter.
 
         ``x0`` warm-starts from the previous LM iteration's camera step. It
         is guarded: if ||S x0 - b|| is not below ||b|| (a damping jump, a
@@ -449,15 +452,16 @@ class SchurContext:
         Q0 = Qn = Qp = q_of(x, r) if q_tol is not None else None
 
         def go(k, r, Qp, Qn):
-            """Whether iteration k (counted from this call's start) runs."""
+            """Whether iteration k (counted from this call's start: an int,
+            or a 0-d int64 on the device in jit mode) runs."""
             more = dot(r, r) > tol2
-            if q_tol is not None and k >= 2:
-                # Nash-Sofer: stop once n (Q_n - Q_{n-1}) / (Q_n - Q_0) < q_tol,
-                # progress measured from this call's own starting model value
-                dq = Qn - Q0
-                zeta = float(k) * (Qn - Qp) / torch.where(dq == 0, -torch.ones_like(dq), dq)
-                more = more & (zeta >= q_tol)
-            return more
+            if q_tol is None:
+                return more
+            # Nash-Sofer: stop once n (Q_n - Q_{n-1}) / (Q_n - Q_0) < q_tol,
+            # progress measured from this call's own starting model value
+            dq = Qn - Q0
+            zeta = k * (Qn - Qp) / torch.where(dq == 0, -torch.ones_like(dq), dq)
+            return more & ((k < 2) | (zeta >= q_tol))
 
         def iterate(x, r, p, rz, Qp, Qn):
             global pcg_iterations
@@ -488,23 +492,25 @@ class SchurContext:
             # unused slots of the loop state
             Qn, Qp = torch.zeros_like(rz), torch.zeros_like(rz)
         running = torch.ones((), dtype=torch.bool, device=b.device)
+        k = torch.zeros((), dtype=torch.int64, device=b.device)
 
-        def chunk(k0, k1):
-            def body(x, r, p, rz, Qp, Qn, running):
-                for k in range(k0, k1):
-                    running = running & go(k, r, Qp, Qn)
-                    x, r, p, rz, Qp, Qn = graphs.masked_update(
-                        running, iterate, x, r, p, rz, Qp, Qn)
-                return x, r, p, rz, Qp, Qn, running
-            return body
+        def go_k(k, r, Qp, Qn):
+            return go(k, r, Qp, Qn) & (k < max_iter)
 
-        for k0 in range(0, max_iter, graphs.PCG_CHUNK):
-            k1 = min(k0 + graphs.PCG_CHUNK, max_iter)
-            # the chunk's first test: a finished PCG stays finished
-            running = running & go(k0, r, Qp, Qn)
-            x, r, p, rz, Qp, Qn, running = graphs.cond_update(
-                running, chunk(k0, k1), x, r, p, rz, Qp, Qn, running)
-        return x
+        def more(x, r, p, rz, Qp, Qn, running, k):
+            # a finished PCG stays finished
+            return running & go_k(k, r, Qp, Qn)
+
+        def chunk(x, r, p, rz, Qp, Qn, running, k):
+            for _ in range(graphs.PCG_CHUNK):
+                running = running & go_k(k, r, Qp, Qn)
+                x, r, p, rz, Qp, Qn = graphs.masked_update(
+                    running, iterate, x, r, p, rz, Qp, Qn)
+                k = k + 1
+            return x, r, p, rz, Qp, Qn, running, k
+
+        return graphs.while_update(more, chunk, -(-max_iter // graphs.PCG_CHUNK),
+                                   x, r, p, rz, Qp, Qn, running, k)[0]
 
     def _x0_reduced(self, dx_prev):
         """Previous global step -> reduced camera vector (None passes)."""

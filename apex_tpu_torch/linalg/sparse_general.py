@@ -21,7 +21,7 @@ is one dense Cholesky. Back substitution replays the levels in reverse.
 Mixed-DOF variables are padded to the largest block DOF with
 identity-pinned diagonals; a Cholesky that fails gives NaN and the 5-stage
 retry ladder reads ``isfinite(x)``, one read-back per attempt: a host read
-in python mode, a replayed loop of one captured elimination in a jit step
+in python mode, a WHILE node over one captured elimination in a jit step
 (``graphs.while_update``). Spans named ``general.*`` mark the layers for
 ``torch.profiler``.
 """
@@ -36,7 +36,7 @@ import torch
 from torch.profiler import record_function
 
 from ..optim import graphs
-from .banded import BASE_REG, _cholesky, damping_tensor, shift_ladder
+from .banded import BASE_REG, _cholesky, cho_solve, damping_tensor, shift_ladder
 
 # ---------------------------------------------------------------------------
 # Host-side symbolic analysis
@@ -393,7 +393,7 @@ class GeneralSparseCholesky:
                 A = B.new_zeros(R, d, R, d)
                 A[self._core_i, :, self._core_j, :] = B[self._core_slots]
                 Lc = _cholesky(A.view(R * d, R * d))
-                xb = torch.cholesky_solve(b[self._base_ids].reshape(-1, 1), Lc)
+                xb = cho_solve(Lc, b[self._base_ids].reshape(-1, 1))
                 x[self._base_ids] = xb.view(R, d)
 
         with record_function("general.back_substitute"):

@@ -43,7 +43,7 @@ from .common import (
     compute_step_quality,
     compute_step_quality_t,
 )
-from .lm import LevenbergMarquardt, LevenbergMarquardtConfig
+from .lm import QR_HOST_LOOP, LevenbergMarquardt, LevenbergMarquardtConfig
 
 MAX_STEP_REUSE = 5
 _SCHUR_NAMES = ("schur_explicit", "schur_implicit", "schur", "schur_auto",
@@ -210,6 +210,8 @@ class DogLeg(LevenbergMarquardt):
 
             def hsolve(rep, g, mu):
                 return core(rep[0], rep[1], blocks(-g), mu)[:D]
+
+            hsolve.host_loop = QR_HOST_LOOP if solver_type == "banded_qr" else None
 
             def hmatvec(rep, v):
                 Dg, Cg = rep
@@ -408,4 +410,5 @@ class DogLeg(LevenbergMarquardt):
                 step_norm, rho, n_succ + accepted, n_fail + ~accepted, cost0,
                 reused + can_reuse, valid, count, g, dx_gn, cauchy, *rep))
 
+        step.host_loop = getattr(hsolve, "host_loop", None)
         return step

@@ -139,4 +139,5 @@ class GaussNewton(LevenbergMarquardt):
                 gradient_norm, step_norm, torch.ones_like(rho), n_succ + 1, n_fail, cost0))
 
         step.solve_fn = solve_fn
+        step.host_loop = getattr(solve_fn, "host_loop", None)
         return step

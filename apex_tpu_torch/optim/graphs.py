@@ -1,38 +1,39 @@
-"""``mode="jit"``'s device loop: an LM / Gauss-Newton iteration recorded as
-a short program of CUDA graphs, replayed, with the step's data-dependent
-branches decided between the graphs by one host read each.
+"""``mode="jit"``'s device loop: a whole solve recorded as a tree of CUDA
+graphs, branches and loops, and run as one CUDA graph whose IF and WHILE
+conditional nodes decide the branches and the trips on the device.
 
 The JAX package runs a whole solve as one ``lax.while_loop`` whose retry
 ladders, refinement gate and PCG loop are nested ``while_loop`` / ``cond``
 (``apex_tpu/optim/lm.py`` ``_optimize_jit``). PyTorch 2.11 captures no
-conditional node, so a branch here splits the capture
-(``cond_update(pred, fn, *state)``):
+conditional node, so the port records the program itself and builds the
+graph (``kernels/graph_conditional.py``, ``csrc/graph_conditional.cu``):
 
-- **capture** (a CUDA problem, once per problem): the graph being captured
-  ends at the branch; ``fn`` is captured as a program of its own that writes
-  the new state in place; a new graph starts after it. Replaying the step
-  replays each graph in turn and, at a branch, reads ``pred`` back (a
-  0-d bool on the device) and replays ``fn``'s program only when it holds.
-  A ladder costs one read when its first attempt is good, PCG one read per
-  ``PCG_CHUNK`` iterations.
-- **eager** (a CPU problem, ``mode="jit"``): the same reads, the same
-  branches, run as plain PyTorch.
+- **capture** (a CUDA problem, once per problem): ``cond_update(pred, fn,
+  *state)`` ends the graph being captured; ``fn`` is captured as a program
+  of its own that writes the new state in place; a new graph starts after
+  it. ``while_update`` records its body once the same way. ``Captured``
+  then builds one parent graph from the recorded tree: each captured graph
+  (``torch.cuda.CUDAGraph(keep_graph=True)``) a child-graph node, each
+  branch an IF node behind a kernel that sets its handle from ``pred`` (a
+  0-d bool on the device), each loop a WHILE node whose body ends in a
+  kernel that sets the handle to ``flag && trips < max_trips``. A launch
+  of it reads nothing back.
+- **eager** (python mode, and a CPU problem in ``mode="jit"``): the same
+  branches as plain PyTorch, each reading its flag back once.
 - **warm-up** (before a capture): ``fn`` always runs and ``torch.where``
   keeps the old state where ``pred`` is false, so every kernel of every
   branch is initialized before capture, with no host read.
 
 ``while_update(pred, body, max_trips, *state)`` is the reference's
-``lax.while_loop``: ``body`` is captured once, as one program, and replayed
-while a one-byte flag, ``pred`` of the state after each trip, holds, for
+``lax.while_loop``: ``state = body(*state)`` while ``pred(*state)`` holds,
 ``max_trips`` trips at most (eager: one read per trip; warm-up: every trip
-masked by ``torch.where``). The general tier's and the QR sweep's retry
-ladders and plain PCG (in chunks of ``PCG_CHUNK`` iterations) run through
-it.
-
-``uncaptured(fn, *inputs)`` is a call that cannot be captured: torch
-2.11's ``linalg.eigh`` reads its error flag back after the factorization.
-Under capture the graph ends there and the call runs eagerly between two
-graphs at every replay, its results copied into static outputs.
+masked by ``torch.where``, or the first ``warmup_trips``). The LM loop
+(``optim/lm.py``), the general tier's and the QR sweep's retry ladders and
+both PCG loops (in chunks of ``PCG_CHUNK`` masked iterations) run through
+it. A loop whose body holds a call that a conditional node's body cannot
+hold stays on the host, named at its call site (``host=reason``): the QR
+solvers' LM loop (``lm.QR_HOST_LOOP``). Its body's graphs are replayed by
+PyTorch one by one, and every branch and loop in it reads its flag.
 
 ``masked_update`` is the branch that never reads: both sides run and
 ``torch.where`` selects (inside a PCG chunk, the done flag frozen on the
@@ -41,44 +42,63 @@ capture, a new tuple otherwise.
 
 Every graph of a problem shares one memory pool. Tensors that cross from
 one graph to a later one stay referenced by the program, and every state
-tensor is allocated outside capture, so no replay overwrites a live value.
+tensor is allocated outside capture, so no launch overwrites a live value.
+The captured ``CUDAGraph`` objects stay referenced as long as the parent
+graph lives: its child nodes point into their pool.
 
 Counters: ``captures`` (programs captured), ``graphs`` (CUDA graphs in
-them), ``replays`` (graph replays), ``uncaptured_calls`` (``uncaptured``
-calls made by replays), ``host_reads`` (device values read by the jit
-loop: branch flags, the status and the result), ``status_reads`` (those of
-the status) and ``kernel_launches`` (the
-landmark kernel's launches made by replays: a replay never calls its
-wrapper, so each graph carries the launches its capture recorded).
+them), ``launches`` (launches of parent graphs), ``replays`` (captured
+graphs run by them), ``host_reads`` (device values read by the jit loop:
+branch flags in eager form, the status and the result), ``status_reads``
+(those of the status), ``kernel_launches`` (the landmark kernel's
+launches made by graphs) and ``replayed`` (each captured kernel's, by
+name: ``reset_counters`` leaves it, so a caller can count a kernel across
+code that resets the others). A launch of a graph never calls the
+kernels' wrappers, so each captured graph carries the launches its
+capture recorded. On the device each IF node counts the times it was
+taken and each WHILE node its trips; ``tally`` derives ``replays`` and
+the kernels' launches from those counts once they are read back, with
+the solve's result.
+``launch_hook``, where set, wraps every launch of a parent graph:
+``launch_hook(launch)`` must call ``launch()`` once (to time it with CUDA
+events, say).
 
-Every other call on the steps captures on the H100 with torch 2.11 under
-the default ``preferred_linalg_library``: batched ``cholesky_ex`` and
-``solve_triangular``, single ``cholesky_solve``, ``qr``, ``index_add_`` and
-the landmark kernel. Only a batched ``cholesky_solve`` would go to MAGMA,
-which synchronizes and fails under capture; no step calls one.
-
-Python mode takes the same branches in eager form, so a ladder or a gate
-reads its flag there exactly as the loop it replaces did.
+Every call on the steps captures on the H100 with torch 2.11 under the
+default ``preferred_linalg_library``: batched ``cholesky_ex`` and
+``solve_triangular``, single ``cholesky_solve``, ``qr``, ``index_add_``,
+the landmark kernel and the SPD inverse kernel. Only a batched
+``cholesky_solve`` would go to MAGMA, which synchronizes and fails under
+capture; no step calls one.
 """
 
 from __future__ import annotations
 
 import functools
+import time
+import weakref
 
 import torch
 
-from ..kernels import landmark_blocks
+from ..kernels import graph_conditional as gc
+from ..kernels import landmark_blocks, spd_inverse
+from ..kernels.build import current_stream
 
-# PCG iterations between two reads of its continue flag in jit mode
+# PCG iterations per trip of its device loop in jit mode
 PCG_CHUNK = 4
 
 captures = 0
 graphs = 0
+launches = 0
 replays = 0
-uncaptured_calls = 0
 host_reads = 0
 status_reads = 0
 kernel_launches = 0
+
+# the kernels whose launches a captured graph carries: {name: wrapper module}
+_KERNELS = {"landmark_blocks": landmark_blocks, "spd_clamped_inv": spd_inverse}
+# their launches made by parent graphs and host replays, by name
+replayed = dict.fromkeys(_KERNELS, 0)
+launch_hook = None
 
 # "eager" | "warmup" | "capture"
 _mode = "eager"
@@ -86,9 +106,9 @@ _recorder = None
 
 
 def reset_counters() -> None:
-    global captures, graphs, replays, uncaptured_calls, host_reads, status_reads
+    global captures, graphs, launches, replays, host_reads, status_reads
     global kernel_launches
-    captures = graphs = replays = uncaptured_calls = host_reads = status_reads = 0
+    captures = graphs = launches = replays = host_reads = status_reads = 0
     kernel_launches = 0
 
 
@@ -138,6 +158,13 @@ def warming_up() -> bool:
     return _mode == "warmup"
 
 
+def recording() -> bool:
+    """Whether steps run to be captured: in their warm-up or capture form,
+    not eager. A call that a conditional node's body cannot hold takes its
+    capturable form only then."""
+    return _mode != "eager"
+
+
 def assign(state, new):
     """The step's result as its state: copied into ``state`` in place under
     capture (``state`` is static there), ``new`` itself otherwise."""
@@ -163,17 +190,8 @@ def cond_update(pred, fn, *state):
         return masked_update(pred, fn, *state)
     if _mode == "eager":
         return tuple(fn(*state)) if read_flag(pred) else tuple(state)
-    rec = _recorder
-    rec.end_graph()
-    rec.programs.append([])
-    rec.begin_graph()
-    new = fn(*state)
-    for old, value in zip(state, new):
-        old.copy_(value)
-    rec.end_graph()
-    body = rec.programs.pop()
-    rec.programs[-1].append(_Branch(pred, body))
-    rec.begin_graph()
+    body = _recorder.program_of(fn, state)
+    _recorder.append(_Branch(pred, body))
     return tuple(state)
 
 
@@ -199,13 +217,22 @@ def _ladder_stage(bad, stage_fn, stages, stage, *state):
     return state
 
 
-def while_update(pred, body, max_trips, *state):
+def while_update(pred, body, max_trips, *state, warmup_trips=None, host=None):
     """``state = body(*state)`` while the 0-d bool ``pred(*state)`` holds,
     ``max_trips`` times at most (a tuple either way). Under capture
-    ``body`` is one program replayed once per trip, writing ``state`` in
-    place, so its tensors must belong to the caller alone."""
+    ``body`` is one program run once per trip of a WHILE node, writing
+    ``state`` in place, so its tensors must belong to the caller alone.
+    The warm-up form runs ``warmup_trips`` masked trips (all of them by
+    default): every trip runs the same kernels.
+
+    ``host``, a reason, keeps the loop on the host on a card: the flag is
+    read before each trip and the body's graphs, with every branch and loop
+    in them, are replayed one by one, each branch reading its flag. A call
+    site passes it where its body holds a library call that a conditional
+    node's body cannot hold (an allocation inside the capture)."""
     if _mode == "warmup":
-        for _ in range(max_trips):
+        trips = max_trips if warmup_trips is None else min(max_trips, warmup_trips)
+        for _ in range(trips):
             state = masked_update(pred(*state), body, *state)
         return tuple(state)
     if _mode == "eager":
@@ -214,93 +241,203 @@ def while_update(pred, body, max_trips, *state):
                 break
             state = body(*state)
         return tuple(state)
-    rec = _recorder
     flag = pred(*state)
-    rec.end_graph()
-    rec.programs.append([])
-    rec.begin_graph()
-    new = body(*state)
-    for old, value in zip(state, new):
-        old.copy_(value)
-    flag.copy_(pred(*state))
-    rec.end_graph()
-    trip = rec.programs.pop()
-    rec.programs[-1].append(_Loop(flag, trip, max_trips))
-    rec.begin_graph()
+
+    def trip(*state):
+        new = body(*state)
+        for old, value in zip(state, new):
+            old.copy_(value)
+        flag.copy_(pred(*state))
+        return state
+
+    trip_program = _recorder.program_of(trip, state)
+    _recorder.append(_Loop(flag, trip_program, max_trips, host))
     return tuple(state)
 
 
-def uncaptured(fn, *inputs):
-    """``fn(*inputs)``, a tensor of the shape and dtype of ``inputs[0]``,
-    for a call that cannot be captured. Under capture it runs at replay,
-    between two graphs, into a static output allocated here."""
-    if _mode != "capture":
-        return fn(*inputs)
-    rec = _recorder
-    rec.end_graph()
-    # outside any capture: the replayed graphs never reuse this memory
-    out = torch.empty_like(inputs[0])
-    rec.programs[-1].append(_Uncaptured(fn, inputs, out))
-    rec.begin_graph()
-    return out
-
-
-class _Uncaptured:
-    def __init__(self, fn, inputs, out):
-        self.fn = fn
-        self.inputs = inputs
-        self.out = out
-
-
 class _Graph:
-    def __init__(self, graph, kernel_launches):
+    """A captured CUDA graph (``None`` under a recorder that captures
+    nothing), its node count and the kernel launches it recorded."""
+
+    def __init__(self, graph, nodes, launched):
         self.graph = graph
-        self.kernel_launches = kernel_launches
+        self.nodes = nodes
+        self.launched = launched
 
 
 class _Branch:
+    host = None
+
     def __init__(self, pred, body):
         self.pred = pred
         self.body = body
+        self.slot = None
 
 
 class _Loop:
-    def __init__(self, flag, body, max_trips):
+    def __init__(self, flag, body, max_trips, host=None):
         self.flag = flag
         self.body = body
         self.max_trips = max_trips
+        self.host = host
+        self.slot = None
 
 
 class _Recorder:
+    """Records a program tree under capture: ``begin_graph`` / ``end_graph``
+    delimit one CUDA graph, ``program_of`` records a nested program."""
+
     def __init__(self, pool):
         self.pool = pool
         self.programs = [[]]
         self.graph = None
-        self.launched = 0
+        self.captured = {}
+
+    def append(self, item):
+        self.programs[-1].append(item)
+
+    def program_of(self, fn, state):
+        """``fn(*state)`` recorded as a program of its own, ending in
+        ``state`` written in place; the graph being captured ends before it
+        and a new one begins after it."""
+        self.end_graph()
+        self.programs.append([])
+        self.begin_graph()
+        new = fn(*state)
+        for old, value in zip(state, new):
+            old.copy_(value)
+        self.end_graph()
+        body = self.programs.pop()
+        self.begin_graph()
+        return body
 
     def begin_graph(self):
-        self.graph = torch.cuda.CUDAGraph()
-        self.launched = landmark_blocks.captured
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.captured = {name: k.captured for name, k in _KERNELS.items()}
         self.graph.capture_begin(pool=self.pool)
 
     def end_graph(self):
         global graphs
         self.graph.capture_end()
-        self.programs[-1].append(_Graph(self.graph, landmark_blocks.captured - self.launched))
+        launched = {name: k.captured - self.captured[name] for name, k in _KERNELS.items()}
+        self.append(_Graph(self.graph, gc.nodes(self.graph.raw_cuda_graph()), launched))
         graphs += 1
         self.graph = None
 
 
-def _replay(program):
-    global replays, kernel_launches, uncaptured_calls
+def record(fn, state, recorder):
+    """``fn(*state)`` recorded by ``recorder`` in capture mode: the program
+    tree (a list of ``_Graph``, ``_Branch`` and ``_Loop``). ``fn`` must end
+    in ``assign(state, ...)``."""
+    with _Mode("capture", recorder) as rec:
+        rec.begin_graph()
+        out = fn(*state)
+        rec.end_graph()
+    if any(a is not b for a, b in zip(out, state)):
+        raise RuntimeError("a captured step must end in graphs.assign(state, ...)")
+    return rec.programs[0]
+
+
+def _empty(program) -> bool:
+    return all(isinstance(item, _Graph) and item.nodes == 0 for item in program)
+
+
+class _Parent:
+    """One instantiated CUDA graph built from a program with no host-driven
+    item, and the device counts of its conditional nodes (``counts[k]``:
+    taken or total trips, the running trip count)."""
+
+    def __init__(self, program, device):
+        self.program = program  # keeps the captured graphs and their pool
+        self.device = device
+        self.launches = 0
+        self.counts = torch.zeros((self._number(program, 0), 2), dtype=torch.int64,
+                                  device=device)
+        prev = gc.use_device(device.index)
+        try:
+            self.graph = gc.create()
+            # freed with the parent; left to the process's end at exit,
+            # where the CUDA context may be gone first
+            weakref.finalize(self, gc.destroy, self.graph).atexit = False
+            self._add(self.graph, program)
+            self.exec = gc.instantiate(self.graph)
+            weakref.finalize(self, gc.destroy_exec, self.exec).atexit = False
+        finally:
+            gc.use_device(prev)
+
+    def _number(self, program, k):
+        for item in program:
+            if isinstance(item, (_Branch, _Loop)):
+                item.slot = k
+                k = self._number(item.body, k + 1)
+        return k
+
+    def _add(self, graph, program):
+        """The nodes of ``program`` in ``graph``, each after the one
+        before it: the last node (``None`` when it adds none)."""
+        dep = None
+        for item in program:
+            if isinstance(item, _Graph):
+                if item.nodes:
+                    dep = gc.add_child(graph, dep, item.graph.raw_cuda_graph())
+            elif item.host:
+                raise RuntimeError(f"a branch kept on the host ({item.host}) inside one "
+                                   "decided on the device: keep the enclosing one on the "
+                                   "host too")
+            elif _empty(item.body):
+                continue
+            elif isinstance(item, _Branch):
+                dep, body = gc.add_if(graph, dep, item.pred.data_ptr(),
+                                      self.counts[item.slot].data_ptr())
+                self._add(body, item.body)
+            else:
+                slots = self.counts[item.slot].data_ptr()
+                dep, body, handle = gc.add_while(graph, dep, item.flag.data_ptr(), slots,
+                                                 item.max_trips)
+                last = self._add(body, item.body)
+                gc.add_while_next(body, last, handle, item.flag.data_ptr(), slots,
+                                  item.max_trips)
+        return dep
+
+    def launch(self):
+        global launches
+        gc.launch(self.exec, current_stream(self.device.index), self.device.index)
+        self.launches += 1
+        launches += 1
+
+    def tally(self, counts) -> None:
+        """Add to ``replays`` and the kernels' replayed launches what the
+        launches since the counts were zeroed ran, ``counts`` being the
+        device counts read back (rows of [taken or trips, running])."""
+        _tally(self.program, self.launches, counts)
+
+
+def _count_replays(graph, execs) -> None:
+    """``execs`` runs of the captured ``graph`` in the counters."""
+    global replays, kernel_launches
+    replays += execs
+    kernel_launches += execs * graph.launched["landmark_blocks"]
+    for name, n in graph.launched.items():
+        replayed[name] += execs * n
+
+
+def _tally(program, execs, counts) -> None:
     for item in program:
         if isinstance(item, _Graph):
-            item.graph.replay()
-            replays += 1
-            kernel_launches += item.kernel_launches
-        elif isinstance(item, _Uncaptured):
-            item.out.copy_(item.fn(*item.inputs))
-            uncaptured_calls += 1
+            if item.nodes:
+                _count_replays(item, execs)
+        elif not _empty(item.body):
+            _tally(item.body, int(counts[item.slot][0]), counts)
+
+
+def _replay(program):
+    """A host-driven item's program: each graph replayed by PyTorch, each
+    branch and loop reading its flag."""
+    for item in program:
+        if isinstance(item, _Graph):
+            if item.nodes:
+                item.graph.replay()
+                _count_replays(item, 1)
         elif isinstance(item, _Loop):
             for _ in range(item.max_trips):
                 if not read_flag(item.flag):
@@ -313,31 +450,67 @@ def _replay(program):
 class Captured:
     """``fn(*state) -> state`` over static state tensors on one CUDA device,
     warmed up once and captured once (``fn`` reads nothing back and ends in
-    ``assign``); ``replay()`` runs it. ``pool`` shares graph memory with the
-    other programs of the same problem."""
+    ``assign``); ``launch()`` runs it. Its top-level items run in order:
+    each stretch of items decided on the device as one parent graph, each
+    host-driven branch or loop from the host. ``pool`` shares graph memory
+    with the other programs of the same problem. ``counts()`` are the
+    parents' device counts, zeroed by ``zero_counts`` and read by the
+    caller with its result, then handed to ``tally``."""
 
     def __init__(self, fn, state, pool):
         global captures
         self.state = tuple(state)
+        device = self.state[0].device
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         # warm-up: every branch runs (library handles and workspaces, the
-        # landmark kernel's build and attributes), on copies of the state
+        # kernels' builds and attributes), on copies of the state
         with warmup_mode(), torch.cuda.stream(side):
             fn(*(t.clone() for t in self.state))
         side.synchronize()
         # the warm-up's freed blocks stay cached in the default pool, where
         # the capture's private pool cannot take them: hand them back first
         torch.cuda.empty_cache()
-        with _Mode("capture", _Recorder(pool)) as rec, torch.cuda.stream(side):
-            rec.begin_graph()
-            out = fn(*self.state)
-            rec.end_graph()
-        self.program = rec.programs[0]
+        with torch.cuda.stream(side):
+            self.program = record(fn, self.state, _Recorder(pool))
         torch.cuda.current_stream().wait_stream(side)
-        if any(a is not b for a, b in zip(out, self.state)):
-            raise RuntimeError("a captured step must end in graphs.assign(state, ...)")
         captures += 1
+        t0 = time.perf_counter()
+        self.parts, stretch = [], []
+        for item in self.program + [None]:
+            if item is None or not isinstance(item, _Graph) and item.host:
+                if not _empty(stretch):
+                    self.parts.append(_Parent(stretch, device))
+                stretch = []
+                if item is not None:
+                    self.parts.append(item)
+            else:
+                stretch.append(item)
+        self.parents = [p for p in self.parts if isinstance(p, _Parent)]
+        # host seconds to build and instantiate the parent graphs
+        self.instantiate_seconds = time.perf_counter() - t0
 
-    def replay(self):
-        _replay(self.program)
+    def zero_counts(self):
+        for p in self.parents:
+            p.counts.zero_()
+            p.launches = 0
+
+    def counts(self):
+        """The parents' device counts, one flat int64 tensor."""
+        return torch.cat([p.counts.flatten() for p in self.parents]
+                         + [torch.zeros(0, dtype=torch.int64, device=self.state[0].device)])
+
+    def launch(self):
+        for part in self.parts:
+            if isinstance(part, _Parent):
+                part.launch() if launch_hook is None else launch_hook(part.launch)
+            else:
+                _replay([part])
+
+    def tally(self, counts):
+        """Counters from ``counts()`` read back (a flat list)."""
+        k = 0
+        for p in self.parents:
+            n = p.counts.numel()
+            p.tally([counts[i:i + 2] for i in range(k, k + n, 2)])
+            k += n

@@ -10,11 +10,13 @@ Two modes, as in the JAX package. ``mode="python"`` (the default) runs each
 iteration eagerly on the problem's device and reads its scalars (costs,
 norms, predicted reduction) back once. ``mode="jit"`` keeps the whole solve
 on the device: accept/reject, the damping, rho and the status are device
-tensors, and the host reads back only the status before each iteration
-and one flag per branch the step takes (the solvers' ladders, refinement
-gate, PCG chunks; ``_optimize_jit``). On a CUDA problem each iteration is a
-program of CUDA graphs captured once and replayed (``graphs.py``); on the
-CPU the same step runs eagerly.
+tensors. On a CUDA problem the initial state and the LM loop are one CUDA
+graph captured once per problem, whose IF and WHILE nodes take the step's
+branches (the solvers' ladders, refinement gate, PCG) and the loop itself
+(``graphs.py``), and the host reads the result once (``_optimize_jit``;
+with the QR solvers the loop stays on the host, ``QR_HOST_LOOP``). On the
+CPU the same step runs eagerly, reading the status before each iteration
+and one flag per branch it takes.
 
 The linear solvers: ``dense_cholesky`` (the default: dense H by
 scatter-add, Cholesky with the retry ladder), ``dense_qr`` (QR of the
@@ -63,6 +65,13 @@ from .common import (
 # schur / schur_auto: the dense reduced camera matrix up to this many
 # camera DOF, matrix-free PCG beyond
 SCHUR_AUTO_MAX_DENSE = 4096
+
+# Why jit mode's LM loop stays on the host for the QR solvers (dense_qr,
+# sparse_qr) on a card: cuSOLVER's geqrf / orgqr call cuBLAS through a
+# handle of their own, which allocates memory inside a CUDA graph capture,
+# and a conditional node's body can hold no allocation. The step is still
+# captured; the host reads the loop's flag once per iteration.
+QR_HOST_LOOP = "cuSOLVER's QR allocates memory inside a CUDA graph capture"
 
 
 @dataclasses.dataclass
@@ -343,6 +352,7 @@ class LevenbergMarquardt:
                 dx = dx * scale
             return dx, gv, cost, scale, None
 
+        solve_banded.host_loop = QR_HOST_LOOP if qr else None
         return solve_banded
 
     def _make_dense_cholesky_solve_fn(self, cp: CompiledProblem):
@@ -390,6 +400,7 @@ class LevenbergMarquardt:
                 dx = dx * scale
             return dx, g, cost, scale, None
 
+        solve_qr.host_loop = QR_HOST_LOOP
         return solve_qr
 
     def _make_step_fn(self, cp: CompiledProblem):
@@ -662,48 +673,80 @@ class LevenbergMarquardt:
                 step_norm, rho, n_succ + accepted, n_fail + ~accepted, cost0))
 
         step.solve_fn = solve_fn
+        step.host_loop = getattr(solve_fn, "host_loop", None)
         return step
 
     def _optimize_jit(self, cp: CompiledProblem) -> SolverResult:
         """The whole solve on the device (the reference's ``_optimize_jit``):
-        the initial state and each iteration are replayed programs (CUDA
-        graphs on a card, the same step eagerly on the CPU), captured once
-        per problem. The host reads the status before each iteration and
-        checks ``timeout`` every ``ceil(max_iterations / 8)`` iterations, so
-        that TIMEOUT comes after the reference's iteration count."""
+        on a card the initial state and the LM loop are one CUDA graph
+        (``_JitRun``), captured once per problem, whose WHILE node runs
+        iterations while the status is RUNNING and the iteration below a cap
+        on the device. Without ``timeout`` a solve is one launch, and the
+        host reads the result once. With one, each launch runs
+        ``ceil(max_iterations / 8)`` iterations at most, and the host reads
+        the status and checks the clock between launches, so that TIMEOUT
+        comes after the reference's iteration count. On the CPU the same
+        step runs eagerly, the status read before each iteration."""
         cfg = self.config
         start = time.perf_counter()
         run = self._jit_cache.get(cp)
         if run is None:
             run = self._jit_cache[cp] = _JitRun(
                 cp, self.JIT_STATE, self._make_device_init(cp),
-                self._make_device_step(cp))
-        run.init()
+                self._make_device_step(cp), cfg.max_iterations)
         chunk = max(1, -(-cfg.max_iterations // 8))
+        # the step sets MAX_ITERATIONS_REACHED at this cap itself
+        cap = max(1, cfg.max_iterations)
+        if run.captured is None:
+            run.init()
+            done = 0
+            while True:
+                status = Status(run.status())
+                if status != Status.RUNNING:
+                    break
+                if (cfg.timeout is not None and done and done % chunk == 0
+                        and time.perf_counter() - start >= cfg.timeout):
+                    status = Status.TIMEOUT
+                    break
+                run.step()
+                done += 1
+            return self._finish_jit(cp, start, run, status)
+        if cfg.timeout is None:
+            run.launch(first=True, cap=cap)
+            return self._finish_jit(cp, start, run, None)
         done = 0
         while True:
+            done = min(done + chunk, cap)
+            run.launch(first=done <= chunk, cap=done)
             status = Status(run.status())
             if status != Status.RUNNING:
                 break
-            if (cfg.timeout is not None and done and done % chunk == 0
-                    and time.perf_counter() - start >= cfg.timeout):
+            if time.perf_counter() - start >= cfg.timeout:
                 status = Status.TIMEOUT
                 break
-            run.step()
-            done += 1
         return self._finish_jit(cp, start, run, status)
 
     def _finish_jit(self, cp: CompiledProblem, start, run, status) -> SolverResult:
         """``SolverResult`` as the reference's ``_finish_jit`` builds it: one
-        read of the scalars (``JIT_COUNTERS`` among them), no per-iteration
-        statistics."""
+        read of the scalars (``JIT_COUNTERS`` among them, the status where
+        ``status`` is None, and on a card the conditional nodes' counts), no
+        per-iteration statistics."""
         values = run.state[:len(cp.pools)]
         st = dict(zip(self.JIT_STATE, run.state[len(cp.pools):]))
         graphs.host_reads += 1
-        cost0, cost, iteration, gnorm, snorm, n_succ, n_fail, *counts = torch.stack([
+        scalars = torch.stack([
             st[k].to(torch.float64) for k in ("initial_cost", "cost", "iteration",
                                               "gradient_norm", "step_norm", "n_success",
-                                              "n_fail", *self.JIT_COUNTERS)]).tolist()
+                                              "n_fail", "status", *self.JIT_COUNTERS)])
+        if run.captured is not None:
+            scalars = torch.cat([scalars, run.captured.counts().to(torch.float64)])
+        cost0, cost, iteration, gnorm, snorm, n_succ, n_fail, device_status, *rest = \
+            scalars.tolist()
+        counts, nodes = rest[:len(self.JIT_COUNTERS)], rest[len(self.JIT_COUNTERS):]
+        if run.captured is not None:
+            run.captured.tally([int(c) for c in nodes])
+        if status is None:
+            status = Status(int(device_status))
         for name, count in zip(self.JIT_COUNTERS, counts):
             setattr(self, name, getattr(self, name) + int(count))
         covariances = None
@@ -730,35 +773,65 @@ class LevenbergMarquardt:
 
 
 class _JitRun:
-    """jit mode's programs and static state for one problem: on a card the
-    initial state and the step captured (``graphs.Captured``, one memory
-    pool), on the CPU the same functions called eagerly."""
+    """jit mode's program and static state for one problem. On a card the
+    initial state and the LM loop are captured as one program
+    (``graphs.Captured``): an IF node on ``first`` that runs the initial
+    state, then the reference's ``run_until_fn``, a WHILE node that runs
+    the step while the status is RUNNING and the iteration below ``cap``.
+    The host writes ``first`` and ``cap`` (device scalars) before each
+    launch. On the CPU the same functions are called eagerly."""
 
-    def __init__(self, cp: CompiledProblem, names, init, step):
+    def __init__(self, cp: CompiledProblem, names, init, step, max_iterations):
         t0 = time.perf_counter()
         self._init, self._step = init, step
-        self._status = len(cp.pools) + names.index("status")
+        n_pools = len(cp.pools)
+        self._status = n_pools + names.index("status")
         self.state = init()
-        self._graphs = None
+        self.captured = None
+        self.instantiate_seconds = 0.0
         if cp.device.type == "cuda":
-            pool = torch.cuda.graph_pool_handle()
-            self._graphs = (graphs.Captured(init, self.state, pool),
-                            graphs.Captured(step, self.state, pool))
+            self.first = torch.ones((), dtype=torch.bool, device=cp.device)
+            self.cap = torch.zeros((), dtype=torch.int64, device=cp.device)
+            program = device_program(init, step, self.first, self.cap, self._status,
+                                     n_pools + names.index("iteration"),
+                                     max(1, max_iterations), getattr(step, "host_loop", None))
+            self.captured = graphs.Captured(program, self.state,
+                                            torch.cuda.graph_pool_handle())
             torch.cuda.synchronize(cp.device)
-        # host seconds to build the state, warm up and capture
+            self.instantiate_seconds = self.captured.instantiate_seconds
+        # host seconds to build the state, warm up, capture and instantiate
         self.capture_seconds = time.perf_counter() - t0
 
     def init(self):
-        if self._graphs:
-            self._graphs[0].replay()
-        else:
-            self.state = self._init(*self.state)
+        self.state = self._init(*self.state)
 
     def step(self):
-        if self._graphs:
-            self._graphs[1].replay()
-        else:
-            self.state = self._step(*self.state)
+        self.state = self._step(*self.state)
+
+    def launch(self, first, cap):
+        """One launch of the captured program: the initial state first
+        where ``first``, then iterations up to ``cap``."""
+        if first:
+            self.captured.zero_counts()
+        self.first.fill_(first)
+        self.cap.fill_(cap)
+        self.captured.launch()
 
     def status(self) -> int:
         return graphs.read_status(self.state[self._status])
+
+
+def device_program(init, step, first, cap, status, iteration, max_trips, host=None):
+    """The jit solve as one program on jit state: ``init`` where the 0-d
+    bool ``first`` holds, then ``step`` while ``state[status]`` is RUNNING
+    and ``state[iteration]`` below the 0-d ``cap`` (``max_trips`` at most;
+    the warm-up runs one trip). ``host``, a reason, keeps the loop on the
+    host (``graphs.while_update``)."""
+    def more(*state):
+        return (state[status] == int(Status.RUNNING)) & (state[iteration] < cap)
+
+    def program(*state):
+        state = graphs.cond_update(first, init, *state)
+        return graphs.while_update(more, step, max_trips, *state, warmup_trips=1, host=host)
+
+    return program

@@ -26,9 +26,9 @@ import numpy as np
 import torch
 
 from ..core.problem import CompiledProblem
+from ..kernels import spd_inverse
 from ..linalg.schur import SchurContext, landmark_inverse
 from ..linalg.utils import bmv as _bmv
-from ..linalg.utils import spd_clamped_inv
 from .mesh import ProcessMesh
 from .schur_partitioned import (ShardedSchurContext, is_uniform_layout,
                                 make_partitioned_schur_step)
@@ -83,7 +83,7 @@ def make_block_schur_step(cp: CompiledProblem, ctx: SchurContext, mesh: ProcessM
         else:
             acc = (sh._schur_diagonal(Hcc, Hpp_inv, Ws)
                    if ctx.preconditioner == "schur_jacobi" else Hcc)
-            inv = [(cols, spd_clamped_inv(acc[ent[:, None, None], loc[:, :, None],
+            inv = [(cols, spd_inverse.spd_clamped_inv(acc[ent[:, None, None], loc[:, :, None],
                                               loc[:, None, :]]))
                    for ent, loc, cols in var_blocks]
 

@@ -15,8 +15,13 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order,
 each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. build: compile the landmark-block kernel from ``apex_tpu_torch/csrc``, and
-   its launch configuration per dtype (tile, stages, residency, registers);
+2. build: compile the three CUDA sources of ``apex_tpu_torch/csrc`` (the
+   landmark-block kernel, the SPD inverse kernel, the conditional graph
+   builder), one nvcc each, started together; the landmark kernel's launch
+   configuration per dtype (tile, stages, residency, registers) and the SPD
+   kernel's per block size; then capture_census: which library calls hold
+   memory nodes in a CUDA graph capture (none of those jit mode puts in a
+   conditional body may);
 3. kernel: the CUDA landmark-block inverse against its plain PyTorch version
    on the card, at P = 65,132 (trafalgar's landmarks) and 993,923 (venice's),
    f32 and f64: bitwise equal, and timed (see ``phase_kernel``); at 226,730
@@ -122,12 +127,13 @@ each printing one JSON line; any failure raises and exits non-zero:
     solve and the Cholesky of S magnify it; or 10x python mode's spread
     over its three solves where that is larger); f32 the phase's quality
     gate. Each prints the first-solve (state, warm-up, capture),
-    capture and timed-solve seconds, graphs, replays and host reads per LM
-    iteration, the device-idle share (profiled, and the profiled solve's
-    device time against the timed solve's wall time), device events per LM
-    iteration, peak memory and the graph memory kept reserved; in the BA
-    phases the landmark kernel runs at least once per LM iteration inside
-    the replayed graphs, counted by name in the profile;
+    capture, instantiate and timed-solve seconds, graphs, replays and host
+    reads (at most 2 per solve; the QR solvers' loop stays on the host), the
+    share of a solve's wall time outside its graph launches (CUDA events;
+    torch.profiler traces no jit solve: it misses kernels of conditional
+    graphs), peak memory and the graph memory kept reserved; in the BA
+    phases the landmark kernel runs once per LM iteration inside the
+    graphs, counted on the device;
 25. camera parity: tests/test_camera_selfcal.py's scene and problem (6
     cameras, 120 points, one shared intrinsics variable, ``HuberLoss(2.0)``)
     for its 7 models through ``schur_implicit`` with its config, f64, python
@@ -143,9 +149,10 @@ each printing one JSON line; any failure raises and exits non-zero:
     iterations, jit beside python mode in f64, Kannala-Brandt in f32 too:
     RMSE below 0.55x, jit equal to python mode (iterations, status, and
     rtol 1e-7 explicit, 1e-10 implicit, or 10x python mode's spread), the
-    landmark kernel once per LM iteration and in the jit profile;
-    prints s per LM iteration, the idle share and the camera spans' share
-    of the device time;
+    landmark kernel once per LM iteration, counted on the device, and at
+    most 2 host reads per jit solve; prints s per LM iteration, the share of
+    the jit solve outside its graph launches and the camera spans' share of
+    python mode's device time;
 27. lie full: Sim3 and SE23 pose graphs on sphere2500's edges
     (``lifted_sphere``) through LM ``sparse_cholesky``, f64, as phase 20;
 28. lie small: tests/test_extended_manifolds_e2e.py's SGal3 chain and the
@@ -223,8 +230,8 @@ each printing one JSON line; any failure raises and exits non-zero:
     card, the host CPU, build, compile, first-solve, capture and solve
     seconds, LM iterations, costs and RMSE, peak allocated and reserved
     memory, graph memory, host reads, kernel launches, PCG iterations and
-    CR retries per LM iteration, and for the venice f64 jit solve a
-    profile (idle share, top 5 device ops, the kernel's device us); venice
+    CR retries per LM iteration, and for the venice f64 jit solve the share
+    of its wall time outside its graph launches (CUDA events); venice
     also in f64 for 5 fixed LM iterations in both modes (peak memory of a
     solve that iterates), and pose50k's and that venice run's first jit
     solves under the allocator's history (the graph pool's peak and what
@@ -234,14 +241,17 @@ each printing one JSON line; any failure raises and exits non-zero:
     mode's (rtol 1e-10, or 10x python mode's spread); every dtype and mode
     bench.py's gate; one kernel launch per BA LM iteration in python mode;
     venice's unseen landmarks at their initial values; the 5-iteration
-    venice below 0.46 px, jit mode python mode's.
+    venice below 0.46 px, jit mode python mode's;
+36. spd_inverse: the SPD inverse kernel against its plain version at every
+    (B, n) the main path gave it, f32 and f64 (``SPD_RTOL``), timed beside
+    the plain version and its ``torch.linalg.eigh``. After jit BA (phase
+    24), pcg_chunk holds ``graphs.PCG_CHUNK`` 1 against 4.
 
-The pose-graph paths launch no kernel of the port's own (the TPU reference
-ran them in XLA, outside Pallas): the landmark-block kernel, the one hand
-kernel, runs on the BA paths only (the BAL and the self-calibration ones).
-Then the kernel summary line (the python-mode, camera, support, examples,
-multi-device and scale launches, the jit BA launches, each per LM
-iteration), and last
+The landmark-block kernel, the port of the one TPU kernel, runs on the BA
+paths only; the SPD inverse kernel (``spd_clamped_inv``, which the reference
+left to XLA) in both PCG preconditioners (implicit BA, ``pcg``). Then the
+kernels line (each kernel's launches on the main path, its time, bound and
+plain version's time), and last
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without one.
 """
@@ -255,6 +265,19 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CALL_RUNS = 25  # single calls timed one by one (median)
+# The SPD inverse kernel against its plain version (spd_errors): an SPD
+# block relative to its largest entry, a clamped block's clamped and cross
+# terms in its eigenbasis relative to 1/floor. Two eigensolvers (Jacobi
+# rotations, cuSOLVER's syevj) agree to the dtype's rounding times the
+# conditioning of the eigenvectors, which spd_blocks keeps well separated
+SPD_RTOL = {"float64": 1e-10, "float32": 1e-3}
+# The kept spectrum of a block with a clamped eigenvalue, relative to its
+# largest kept 1/w: that inverse holds entries of 1/floor, each stored to
+# the dtype's rounding eps / floor, which is eps / rel_floor of the kept
+# scale (4 times that; the plain version's own error reaches 0.75 times)
+SPD_KEPT_RTOL = {"float64": 4 * 2.220446049250313e-16 / 1e-12,
+                 "float32": 4 * 1.1920928955078125e-07 / 1e-6}
+SPD_PLAIN_BATCH = 16_384
 TIMED_LAUNCHES = 100  # back-to-back launches between two events
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}  # H100 SXM, no tensor cores
@@ -392,6 +415,236 @@ def phase_kernel(P, dtype):
                copies=len(copies), launches_timed=TIMED_LAUNCHES, call_runs=CALL_RUNS)
     emit(out)
     return out
+
+
+def spd_blocks(B, n, seed=0):
+    """Seeded symmetric [B, n, n] blocks for the SPD kernel's check, of three
+    kinds by index modulo 3, so that every batch, B = 1 too, starts with an
+    SPD block: SPD (A A^T + 0.1 I), near-singular (one eigenvalue of 1e-15
+    against ones in [0.5, 3)), and indefinite (eigenvalues of magnitude
+    [0.5, 3), at least one negative and, for n > 1, one positive: the
+    entity-merged Schur-Jacobi blocks can be indefinite). No kept
+    eigenvalue lies near the clamp floor, and every kept one is separated
+    from every clamped one."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1000 * n + B)
+    A = rng.normal(size=(B, n, n))
+    H = A @ A.transpose(0, 2, 1) + 0.1 * np.eye(n)
+    Q, _ = np.linalg.qr(A)
+    w = rng.uniform(0.5, 3.0, size=(B, n))
+    sign = np.where(rng.random((B, n)) < 0.5, -1.0, 1.0)
+    sign[:, 0] = -1.0
+    if n > 1:
+        sign[:, 1] = 1.0
+    near = w.copy()
+    near[:, 0] = 1e-15
+    kind = np.arange(B) % 3
+    for k, spectrum in ((1, near), (2, sign * w)):
+        H[kind == k] = ((Q * spectrum[:, None, :]) @ Q.transpose(0, 2, 1))[kind == k]
+    return H
+
+
+def spd_eigh(H):
+    """f64 eigenvalues and eigenvectors of H in pieces of SPD_PLAIN_BATCH
+    blocks (see ``spd_plain``)."""
+    import torch
+
+    parts = [torch.linalg.eigh(H[i:i + SPD_PLAIN_BATCH].double())
+             for i in range(0, H.shape[0], SPD_PLAIN_BATCH)]
+    return torch.cat([w for w, _ in parts]), torch.cat([V for _, V in parts])
+
+
+def spd_errors(H, got, want):
+    """The SPD inverse ``got`` against ``want`` on the blocks H, each kind of
+    block at its own scale: (spd, kept, clamped) relative errors, each the
+    largest over its blocks (0 where there is none).
+
+    - spd: a block with no eigenvalue below the clamp floor, |got - want|
+      over its largest entry (gate SPD_RTOL);
+    - clamped, kept: a block with one, in its own f64 eigenbasis V, E =
+      V^T (got - want) V. The entries between two kept eigenvalues are held
+      to the block's largest kept 1/w (gate SPD_KEPT_RTOL: a clamped block's
+      inverse holds entries of 1/floor, stored to the dtype's rounding of
+      that), the rest, clamped and cross terms, to 1/floor (gate SPD_RTOL).
+      So the large clamped entries cannot hide an error in the kept
+      spectrum beyond that rounding."""
+    import torch
+
+    from apex_tpu_torch.kernels import spd_inverse as spd
+
+    w, V = spd_eigh(H)
+    floor = spd.default_floor(H.dtype) * w.abs().amax(-1, keepdim=True).clamp_min(1.0)
+    kept = w > floor
+    clamped = ~kept.all(-1)
+    diff = got.double() - want.double()
+    full = diff.abs().amax((1, 2)) / want.double().abs().amax((1, 2))
+    both = kept[:, :, None] & kept[:, None, :]
+    E = (V.mT @ diff @ V).abs()
+    kept_scale = torch.where(kept, 1.0 / w, 0.0).amax(-1)[:, None, None].clamp_min(1e-300)
+    kept_err = torch.where(both, E / kept_scale, 0.0).amax((1, 2))
+    clamped_err = torch.where(both, 0.0, E * floor[:, :, None]).amax((1, 2))
+
+    def largest(x, where):
+        return float(torch.where(where, x, 0.0).max()) if x.numel() else 0.0
+
+    return largest(full, ~clamped), largest(kept_err, clamped), largest(clamped_err, clamped)
+
+
+def spd_plain(H):
+    """The plain version in pieces of SPD_PLAIN_BATCH blocks: torch.linalg.eigh
+    on the card (cuSOLVER's batched syevj) fails on one batch of 65,132
+    f32 3x3 blocks."""
+    import torch
+
+    from apex_tpu_torch.kernels import spd_inverse as spd
+
+    return torch.cat([spd.spd_clamped_inv_plain(H[i:i + SPD_PLAIN_BATCH])
+                      for i in range(0, H.shape[0], SPD_PLAIN_BATCH)])
+
+
+def spd_bound_us(B, n, dtype_name):
+    """The SPD inverse's least time: each block read and written once at the
+    HBM rate, or at least (4/3) n^3 operations for the eigendecomposition
+    (a dense tridiagonal reduction's count) and 2 n^3 for V diag(1/w) V^T
+    at the dtype's peak rate, whichever is longer."""
+    size = 8 if dtype_name == "float64" else 4
+    bytes_us = 2 * B * n * n * size / HBM_BYTES_PER_S * 1e6
+    ops_us = B * (10.0 / 3.0) * n ** 3 / PEAK_OPS_PER_S[dtype_name] * 1e6
+    return (bytes_us, "bytes") if bytes_us >= ops_us else (ops_us, "operations")
+
+
+def phase_spd_inverse(shapes):
+    """The SPD inverse kernel against its plain version at every (B, n) the
+    main path gave it, f32 and f64, on ``spd_blocks``: finite, and within
+    SPD_RTOL / SPD_KEPT_RTOL of the plain version, each kind of block at
+    its own scale (``spd_errors``); then its device time per launch (100
+    launches queued behind a sleep), its bound, the plain version's time
+    and that of the ``torch.linalg.eigh`` call inside it (one call per
+    SPD_PLAIN_BATCH blocks). ``shapes`` maps (B, n, dtype) to the main
+    path's calls. Returns {(B, n, dtype): line}."""
+    import torch
+
+    from apex_tpu_torch.kernels import spd_inverse as spd
+
+    out = {}
+    for B, n in sorted({(B, n) for B, n, _ in shapes}):
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).replace("torch.", "")
+            H = torch.as_tensor(spd_blocks(B, n), dtype=dtype).cuda()
+            k = spd.spd_clamped_inv(H)
+            p = spd_plain(H)
+            torch.cuda.synchronize()
+            full, kept, clamped = spd_errors(H, k, p)
+            max_abs = float((k - p).abs().max())
+            if (not bool(torch.isfinite(k).all()) or not full <= SPD_RTOL[name]
+                    or not clamped <= SPD_RTOL[name] or not kept <= SPD_KEPT_RTOL[name]):
+                raise AssertionError(
+                    f"spd_clamped_inv [{B}, {n}, {n}] {name}: relative errors SPD {full}, "
+                    f"clamped {clamped} (gate {SPD_RTOL[name]}), kept {kept} "
+                    f"(gate {SPD_KEPT_RTOL[name]})")
+            device_us, host_us = device_and_host_us(spd.spd_clamped_inv, [H])
+            bound, bound_by = spd_bound_us(B, n, name)
+            line = dict(phase="spd_inverse", B=B, n=n, dtype=name, max_abs_err=max_abs,
+                        spd_rel_err=full, clamped_rel_err=clamped, rtol=SPD_RTOL[name],
+                        kept_rel_err=kept, kept_rtol=SPD_KEPT_RTOL[name],
+                        device_us=device_us, bound_us=bound, bound_by=bound_by,
+                        share=bound / device_us,
+                        host_us=host_us, call_ms=median_ms(spd.spd_clamped_inv, H),
+                        plain_ms=median_ms(spd_plain, H),
+                        eigh_ms=median_ms(lambda x: [torch.linalg.eigh(x[i:i + SPD_PLAIN_BATCH])
+                                                     for i in range(0, B, SPD_PLAIN_BATCH)], H),
+                        config=spd.launch_config(dtype, n),
+                        main_path_calls=shapes.get((B, n, name), 0))
+            emit(line)
+            out[(B, n, name)] = line
+    return out
+
+
+class SpdShapes(dict):
+    """The SPD kernel's wrapper, wrapped while this is installed: counts its
+    launching calls (a CUDA tensor of B > 0 blocks) by (B, n, dtype).
+    Callers reach the wrapper through its module, so this sees them all."""
+
+    def __init__(self):
+        from apex_tpu_torch.kernels import spd_inverse as spd
+
+        super().__init__()
+        self.module, self.wrapped = spd, spd.spd_clamped_inv
+
+        def counted(blocks, rel_floor=None):
+            if blocks.device.type == "cuda" and blocks.shape[0]:
+                key = (blocks.shape[0], blocks.shape[-1],
+                       str(blocks.dtype).replace("torch.", ""))
+                self[key] = self.get(key, 0) + 1
+            return self.wrapped(blocks, rel_floor)
+
+        spd.spd_clamped_inv = counted
+
+    def remove(self):
+        self.module.spd_clamped_inv = self.wrapped
+
+
+def capture_census(fn):
+    """What one CUDA graph capture of ``fn()`` holds on the card
+    (``graph_conditional.census``), ``fn`` warmed up twice first."""
+    import torch
+
+    from apex_tpu_torch.kernels import graph_conditional as gc
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        fn()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    return gc.census(graph.raw_cuda_graph())
+
+
+def phase_capture_census():
+    """The library calls that jit mode's conditional bodies hold, each
+    captured alone at the widest size of the path: no memory node in any
+    (a conditional node's body can hold none): cuSOLVER's potrf at
+    ``banded.CHOLESKY_PANEL`` columns, the panel Cholesky (what
+    ``banded._cholesky`` takes in a captured step) and ``banded.cho_solve``
+    at the 20^3 lattice's 20,262. Beside them, what the
+    port keeps out of those bodies, and why: a potrf 20,262 wide, cuSOLVER's
+    ``cholesky_solve`` (potrs) and ``qr`` (the QR solvers' loop stays on the
+    host) allocate inside a capture."""
+    import torch
+
+    from apex_tpu_torch.linalg import banded
+
+    def spd(n):
+        R = torch.rand(n, n, dtype=torch.float64, device="cuda", generator=gen)
+        return (R + R.T) / 2 + n * torch.eye(n, dtype=torch.float64, device="cuda")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wide = spd(20_262)
+    b = torch.rand(20_262, 1, dtype=torch.float64, device="cuda", generator=gen)
+    L = banded._cholesky(wide)
+    panel = spd(banded.CHOLESKY_PANEL)
+    small = spd(1_500)
+    J = torch.rand(1_800, 900, dtype=torch.float64, device="cuda", generator=gen)
+    held = {"potrf at CHOLESKY_PANEL": lambda: torch.linalg.cholesky_ex(panel),
+            "panel Cholesky at 20262": lambda: banded.cholesky_panels((wide + wide.mT) / 2),
+            "cho_solve at 20262": lambda: banded.cho_solve(L, b)}
+    kept_out = {"potrf at 20262": lambda: torch.linalg.cholesky_ex(wide),
+                "cholesky_solve at 1500": lambda: torch.cholesky_solve(small[:, :1], small),
+                "qr 1800x900": lambda: torch.linalg.qr(J)}
+    line = dict(phase="capture_census", cholesky_panel=banded.CHOLESKY_PANEL,
+                held={k: capture_census(f) for k, f in held.items()},
+                kept_out={k: capture_census(f) for k, f in kept_out.items()})
+    emit(line)
+    for k, c in line["held"].items():
+        if c.get("mem_alloc") or c.get("mem_free"):
+            raise AssertionError(f"capture_census: {k} holds memory nodes: {c}")
 
 
 def phase_small_parity():
@@ -1289,9 +1542,15 @@ def phase_jit_parity():
         for path, make in paths:
             costs = [make("python").optimize(cards).final_cost for _ in range(3)]
             spread = (max(costs) - min(costs)) / costs[-1]
-            rc, rh = make("jit").optimize(cards), make("jit").optimize(host)
+            jit = make("jit")
+            rc, _, n = counted_solve(jit, cards)
+            rh = make("jit").optimize(host)
             rtol = max(1e-10, 10.0 * spread)
             emit(dict(phase="jit_parity", file=fname, path=path, iterations=rc.iterations,
+                      host_reads=n["host_reads"],
+                      host_read_bound=check_host_reads(f"jit_parity {fname} {path}", n, 1,
+                                                       rc.iterations,
+                                                       host_loop_reason(jit, cards)),
                       status=rc.status.name, cost_cuda=rc.final_cost, cost_cpu=rh.final_cost,
                       rel_diff=abs(rc.final_cost - rh.final_cost) / rh.final_cost,
                       python_run_to_run_spread=spread, parity_rtol=rtol,
@@ -1306,13 +1565,40 @@ def phase_jit_parity():
 
 def graph_counters():
     from apex_tpu_torch.kernels import landmark_blocks as lb
+    from apex_tpu_torch.kernels import spd_inverse as spd
     from apex_tpu_torch.optim import graphs
 
-    return dict(captures=graphs.captures, graphs=graphs.graphs, replays=graphs.replays,
-                uncaptured_calls=graphs.uncaptured_calls,
-                host_reads=graphs.host_reads, status_reads=graphs.status_reads,
+    return dict(captures=graphs.captures, graphs=graphs.graphs, launches=graphs.launches,
+                replays=graphs.replays, host_reads=graphs.host_reads,
+                status_reads=graphs.status_reads,
                 replayed_kernel_launches=graphs.kernel_launches,
-                eager_kernel_launches=lb.launches)
+                eager_kernel_launches=lb.launches,
+                replayed_spd_launches=graphs.replayed["spd_clamped_inv"],
+                eager_spd_launches=spd.launches)
+
+
+def host_loop_reason(jit, cp):
+    """Why the jit solver keeps its LM loop on the host on a card (the QR
+    solvers), or None."""
+    return getattr(jit._jit_cache[cp]._step, "host_loop", None)
+
+
+def check_host_reads(label, n, solves, iterations, host_loop):
+    """The host reads of ``solves`` jit solves without a timeout, of
+    ``iterations`` LM iterations in all: one read each (the result) where
+    the LM loop runs on the device, at most 2; where it stays on the host
+    (``host_loop``), the loop's flag once per iteration and once more, the
+    QR sweep's retry ladder's flag once per stage it takes and once more
+    (``banded.RETRY_STAGES`` stages at most) per iteration, and the
+    result."""
+    from apex_tpu_torch.linalg import banded
+
+    bound = (2 * solves if host_loop is None
+             else (banded.RETRY_STAGES + 2) * iterations + 2 * solves)
+    if n["host_reads"] > bound:
+        raise AssertionError(f"{label}: {n['host_reads']} host reads in {solves} solves of "
+                             f"{iterations} LM iterations, bound {bound}")
+    return bound
 
 
 def counted_solve(solver, cp, **kw):
@@ -1329,18 +1615,54 @@ def counted_solve(solver, cp, **kw):
     return res, seconds, {k: v - before[k] for k, v in graph_counters().items()}
 
 
-def jit_full(phase, label, problem, make, dtype, gate, rtol=1e-10):
+def graph_span_solve(solve):
+    """One synchronized jit solve with CUDA events around each launch of a
+    parent graph (``graphs.launch_hook``): (result, wall seconds, device
+    seconds between the events). The share of the wall time outside them
+    is time the card spent on no graph of the solve: the host's set-up,
+    reads and result. torch.profiler sees no kernel of the BA solves'
+    parent graphs (PERF.md, section 6), so its busy time cannot give the
+    idle share there."""
+    import torch
+
+    from apex_tpu_torch.optim import graphs
+
+    spans = []
+
+    def timed(launch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        spans.append((start, end))
+
+    graphs.launch_hook = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        graphs.launch_hook = None
+    return res, wall, sum(s.elapsed_time(e) for s, e in spans) / 1e3
+
+
+def jit_full(phase, label, problem, make, dtype, gate, rtol=1e-10, landmark=False):
     """One dtype of a jit phase: three python-mode solves (the last timed,
     the reference; the spread of their final costs is python mode's own
     run-to-run rounding, from ``index_add_``'s atomic order), then the jit
-    solves: the first (state, warm-up and capture), one under the profiler
-    and the timed one. f64 must give python mode's iterations and status
-    and its final cost within ``rtol``, or within 10x python mode's own
+    solves: the first (state, warm-up and capture), the timed one and one
+    with CUDA events around its graph launches (``graph_span_solve``). f64
+    must give python mode's iterations and status and its final cost
+    within ``rtol``, or within 10x python mode's own
     spread where that is larger, and DogLeg python mode's reused steps;
-    ``gate(res)`` raises on a result below the phase's quality gate.
-    Returns a dict: the jit iterations of the three solves, the landmark
-    kernel launches in them (by the replay count), the profile, the emitted
-    line, the compiled problem and the python and jit solvers."""
+    ``gate(res)`` raises on a result below the phase's quality gate. Each
+    jit solve makes at most 2 host reads (``check_host_reads``); with
+    ``landmark`` each launches the landmark kernel once per LM iteration,
+    counted on the device. Returns a dict: the jit iterations of the three
+    solves, the landmark kernel launches in them (by the device counts), the
+    emitted line, the compiled problem and the python and jit solvers."""
     import gc
 
     import numpy as np
@@ -1369,41 +1691,43 @@ def jit_full(phase, label, problem, make, dtype, gate, rtol=1e-10):
     gc.collect()
     torch.cuda.empty_cache()
     graph_memory = torch.cuda.memory_reserved() - reserved
-    before = graph_counters()
-    profiled = profile_solve(lambda: jit.optimize(cp))
-    profiled_n = {k: v - before[k] for k, v in graph_counters().items()}
     torch.cuda.reset_peak_memory_stats()
     res, seconds, n = counted_solve(jit, cp)
     peak = torch.cuda.max_memory_allocated()
+    before = graph_counters()
+    spanned, span_wall, span_device = graph_span_solve(lambda: jit.optimize(cp))
+    span_n = {k: v - before[k] for k, v in graph_counters().items()}
     rtol = max(rtol, 10.0 * spread)
+    run = jit._jit_cache[cp]
+    host_loop = host_loop_reason(jit, cp)
     line = dict(phase=phase, graph=label, dtype=name, D=cp.total_dof, status=res.status.name,
               iterations=res.iterations, initial_cost=res.initial_cost,
               final_cost=res.final_cost, python_iterations=ref.iterations,
               python_final_cost=ref.final_cost,
               rel_diff_to_python=abs(res.final_cost - ref.final_cost) / ref.final_cost,
               python_run_to_run_spread=spread, parity_rtol=rtol,
-              first_solve_seconds=first_s,
-              capture_seconds=jit._jit_cache[cp].capture_seconds,
+              first_solve_seconds=first_s, capture_seconds=run.capture_seconds,
+              instantiate_seconds=run.instantiate_seconds,
               solve_seconds=seconds, seconds_per_lm_iteration=seconds / res.iterations,
               python_solve_seconds=python_s, speedup_over_python=python_s / seconds,
-              graphs=first_n["graphs"], replays=n["replays"],
+              graphs=first_n["graphs"], parent_launches=n["launches"], replays=n["replays"],
               replays_per_lm_iteration=n["replays"] / res.iterations,
               host_reads=n["host_reads"],
               host_reads_per_lm_iteration=n["host_reads"] / res.iterations,
-              uncaptured_calls=n["uncaptured_calls"],
-              device_idle_share=profiled["device_idle_share"],
-              # the profiled solve's device time per LM iteration against the
-              # timed solve's wall time per LM iteration: the idle share
-              # without the profiler's overhead (f32 runs may differ in
-              # iterations)
-              device_idle_share_timed=1.0 - (
-                  profiled["device_busy_seconds"] / profiled["iterations"]
-                  / (seconds / res.iterations)),
-              device_events_per_lm_iteration=profiled["device_events_per_lm_iteration"],
+              host_loop=host_loop,
+              host_read_bound=check_host_reads(f"{phase} {label} {name}", n, 1,
+                                               res.iterations, host_loop),
+              spd_launches_per_lm_iteration=(n["replayed_spd_launches"]
+                                             + n["eager_spd_launches"]) / res.iterations,
+              landmark_launches_per_lm_iteration=(n["replayed_kernel_launches"]
+                                                  + n["eager_kernel_launches"])
+              / res.iterations,
+              graph_device_seconds=span_device, graph_span_wall_seconds=span_wall,
+              device_idle_share_outside_graphs=1.0 - span_device / span_wall,
               max_memory_allocated=peak, max_memory_allocated_first_solve=first_peak,
               graph_memory_reserved=graph_memory,
               python_max_memory_allocated=python_peak,
-              first_solve_counters=first_n, profiled_counters=profiled_n, profile=profiled)
+              first_solve_counters=first_n, span_counters=span_n)
     if python_reused is not None:
         # DogLeg: steps taken from the cache over the three solves of each mode
         line.update(reused_steps_python=python_reused, reused_steps_jit=jit.reused_steps)
@@ -1419,12 +1743,21 @@ def jit_full(phase, label, problem, make, dtype, gate, rtol=1e-10):
             raise AssertionError(f"{label}: jit reused {jit.reused_steps} steps, python "
                                  f"mode {python_reused}")
     gate(res)
-    if first_n["captures"] != 2 or n["captures"] or profiled_n["captures"]:
-        raise AssertionError(f"{label}: captures {first_n}, {profiled_n}, {n}")
-    iterations = first.iterations + profiled["iterations"] + res.iterations
+    if first_n["captures"] != 1 or n["captures"] or span_n["captures"]:
+        raise AssertionError(f"{label}: captures {first_n}, {span_n}, {n}")
+    check_host_reads(f"{phase} {label} {name} first", first_n, 1, first.iterations, host_loop)
+    check_host_reads(f"{phase} {label} {name} span", span_n, 1, spanned.iterations, host_loop)
+    if landmark:
+        # one launch per LM iteration, the warm-up's one eager launch aside
+        for c, its in ((first_n, first.iterations), (n, res.iterations),
+                       (span_n, spanned.iterations)):
+            if c["replayed_kernel_launches"] != its:
+                raise AssertionError(f"{label} {name}: {c['replayed_kernel_launches']} "
+                                     f"landmark launches on the device for {its} LM iterations")
+    iterations = first.iterations + res.iterations + spanned.iterations
     launches = sum(c["replayed_kernel_launches"] + c["eager_kernel_launches"]
-                   for c in (first_n, profiled_n, n))
-    return dict(iterations=iterations, launches=launches, profiled=profiled, line=line, cp=cp,
+                   for c in (first_n, n, span_n))
+    return dict(iterations=iterations, launches=launches, line=line, cp=cp,
                 python=python, jit=jit)
 
 
@@ -1643,17 +1976,74 @@ def phase_jit_ba(ds, problem):
         # python mode's explicit solves spread by up to ~1e-8 on the H100
         rtol = 1e-7 if solver == "schur" else 1e-10
         for dtype in (torch.float64, torch.float32):
-            out = jit_full("jit_ba", f"trafalgar257 {solver}", problem, make, dtype, gate, rtol)
-            its, launches, profiled = out["iterations"], out["launches"], out["profiled"]
-            if profiled["landmark_kernel_events"] < profiled["iterations"]:
-                raise AssertionError(
-                    f"{solver} {dtype}: {profiled['landmark_kernel_events']} landmark kernel "
-                    f"events in the profile for {profiled['iterations']} LM iterations")
+            out = jit_full("jit_ba", f"trafalgar257 {solver}", problem, make, dtype, gate, rtol,
+                           landmark=True)
+            its, launches = out["iterations"], out["launches"]
             if launches < its:
                 raise AssertionError(f"{solver} {dtype}: {launches} launches, {its} iterations")
             total += launches
             iterations += its
     return total, iterations
+
+
+def phase_pcg_chunk(problem):
+    """``graphs.PCG_CHUNK`` under the device loop: the trafalgar-scale
+    implicit BA solve (10 LM iterations, f64) and LM ``pcg`` on the medium
+    SE2 fixture, each with PCG chunks of 1 and of 4 iterations (a chunk is
+    one trip of PCG's WHILE node; its iterations after PCG stops are masked
+    by ``torch.where``), in turns 1, 4, 4, 1: a new solver per turn (its
+    capture takes the chunk), its first solve apart, then two timed solves.
+    Gates: every turn gives the same iterations and status, and costs
+    within rtol 1e-10. One line per problem: seconds per LM iteration per
+    chunk (the two turns' medians), and the WHILE trips."""
+    import numpy as np
+    import torch
+
+    import apex_tpu_torch as apx
+    from apex_tpu_torch.optim import graphs
+
+    def implicit():
+        cfg = apx.LevenbergMarquardtConfig.for_bundle_adjustment()
+        cfg.linear_solver_type = "schur_implicit"
+        cfg.max_iterations = 10
+        cfg.mode = "jit"
+        return apx.LevenbergMarquardt(cfg)
+
+    def pcg():
+        return apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+            linear_solver_type="pcg", mode="jit", **CERTIFIED))
+
+    se2 = apx.load_g2o(os.path.join(REPO, MEDIUM_SE2[0])).to_problem()
+    default = graphs.PCG_CHUNK
+    try:
+        for label, prob, make in (("trafalgar257 schur_implicit", problem, implicit),
+                                  ("medium_se2_300 pcg", se2, pcg)):
+            cp = prob.compile(dtype=torch.float64, device="cuda")
+            seconds, results = {1: [], 4: []}, []
+            replays = {}
+            for chunk in (1, 4, 4, 1):
+                graphs.PCG_CHUNK = chunk
+                lm = make()
+                counted_solve(lm, cp)
+                for _ in range(2):
+                    res, s_, n = counted_solve(lm, cp)
+                    seconds[chunk].append(s_ / res.iterations)
+                    results.append(res)
+                    replays[chunk] = n["replays"] / res.iterations
+                del lm
+            ref = results[0]
+            for r in results:
+                if (r.iterations, r.status) != (ref.iterations, ref.status):
+                    raise AssertionError(f"pcg chunk {label}: {r.summary()} vs {ref.summary()}")
+                np.testing.assert_allclose(r.final_cost, ref.final_cost, rtol=1e-10,
+                                           err_msg=f"pcg chunk {label}")
+            emit(dict(phase="pcg_chunk", problem=label, iterations=ref.iterations,
+                      seconds_per_lm_iteration={c: sorted(v) for c, v in seconds.items()},
+                      median_seconds_per_lm_iteration={c: float(np.median(v))
+                                                       for c, v in seconds.items()},
+                      replays_per_lm_iteration=replays, chunk_in_use=default))
+    finally:
+        graphs.PCG_CHUNK = default
 
 
 # -- slice 9: the camera models, the extended groups and autodiff factors ------
@@ -1868,12 +2258,18 @@ def phase_camera_parity():
         res = {}
         for key, device, mode in (("cpu", "cpu", "python"), ("cuda", "cuda", "python"),
                                   ("cuda_jit", "cuda", "jit")):
-            res[key] = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
-                mode=mode, **SELFCAL_LM)).optimize(
-                problem.compile(dtype=torch.float64, device=device))
+            lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(mode=mode, **SELFCAL_LM))
+            cp = problem.compile(dtype=torch.float64, device=device)
+            if device == "cpu":
+                res[key] = lm.optimize(cp)
+            else:
+                res[key], _, n = counted_solve(lm, cp)
         rh = res["cpu"]
+        # n: the jit solve's counts, the last counted_solve
+        check_host_reads(f"camera_parity {model}", n, 1, res["cuda_jit"].iterations, None)
         emit(dict(phase="camera_parity", model=model, observations=n_obs,
-                  iterations=rh.iterations, status=rh.status.name,
+                  iterations=rh.iterations, status=rh.status.name, host_reads_jit=n["host_reads"],
+                  entity_dof=lm._jit_cache[cp]._step.solve_fn.schur_context.entity_dof,
                   **{f"cost_{k}": r.final_cost for k, r in res.items()},
                   **{f"iterations_{k}": r.iterations for k, r in res.items()},
                   focal=float(res["cuda"].variables["intr_shared"][0]), focal_true=intr[0]))
@@ -1908,14 +2304,11 @@ def camera_solve(phase, label, problem, n_obs, solver, dtype, rtol):
     solve (warm-up and capture) and the timed one. f64 must give python
     mode's iterations and status and its final cost within ``rtol`` (or 10x
     python mode's spread). Every solve must bring the RMSE below 0.55x the
-    initial, and the landmark kernel must run at least once per LM
-    iteration. Profiles: for ``schur``, a python-mode solve (the camera
-    spans' share of the device time) and a jit solve; for
-    ``schur_implicit`` (thousands of device events per LM iteration, whose
-    trace takes the profiler long to read) a jit solve of its first 3 LM
-    iterations, captured by a solve before it. The landmark
-    kernel must appear in the jit profile once per LM iteration. Returns (kernel launches, LM
-    iterations) over its solves."""
+    initial, and the landmark kernel must run once per LM iteration (in jit
+    mode counted on the device). For ``schur`` a python-mode solve under
+    the profiler (the camera spans' share of the device time); then a jit
+    solve with CUDA events around its graph launches. Returns (kernel
+    launches, LM iterations) over its solves."""
     import numpy as np
     import torch
 
@@ -1963,17 +2356,11 @@ def camera_solve(phase, label, problem, n_obs, solver, dtype, rtol):
     torch.cuda.reset_peak_memory_stats()
     res, seconds, n = counted_solve(jit, cp)
     peak = torch.cuda.max_memory_allocated()
-    if solver == "schur":
-        short = jit
-    else:
-        # its own warm-up and capture first, outside the profile
-        short = make("jit", iterations=3)
-        warm, _, warm_n = counted_solve(short, cp)
-        counts.append(warm_n)
-        iterations += warm.iterations
-    profiled, profiled_n = profiled_solve(short)
-    counts += [first_n, n, profiled_n]
-    iterations += first.iterations + res.iterations + profiled["iterations"]
+    before = graph_counters()
+    spanned, span_wall, span_device = graph_span_solve(lambda: jit.optimize(cp))
+    span_n = {k: v - before[k] for k, v in graph_counters().items()}
+    counts += [first_n, n, span_n]
+    iterations += first.iterations + res.iterations + spanned.iterations
     rtol = max(rtol, 10.0 * spread)
     ctx = jit._jit_cache[cp]._step.solve_fn.schur_context
     r0, r1 = rmse(res.initial_cost, n_obs), rmse(res.final_cost, n_obs)
@@ -1990,17 +2377,12 @@ def camera_solve(phase, label, problem, n_obs, solver, dtype, rtol):
                 python_solve_seconds=python_s,
                 python_seconds_per_lm_iteration=python_s / ref.iterations,
                 speedup_over_python=python_s / seconds,
-                profiled_iterations=profiled["iterations"],
-                device_idle_share=profiled["device_idle_share"],
-                device_idle_share_timed=1.0 - (
-                    profiled["device_busy_seconds"] / profiled["iterations"]
-                    / (seconds / res.iterations)),
-                landmark_kernel_events_jit=profiled["landmark_kernel_events"],
+                instantiate_seconds=jit._jit_cache[cp].instantiate_seconds,
+                host_reads=n["host_reads"],
                 host_reads_per_lm_iteration=n["host_reads"] / res.iterations,
-                device_events_per_lm_iteration=profiled["device_events_per_lm_iteration"],
-                top_device_ops_ms=profiled["top_device_ops_ms"][:6],
-                profile_seconds=profiled["profile_seconds"], max_memory_allocated=peak,
-                **camera)
+                graph_device_seconds=span_device, graph_span_wall_seconds=span_wall,
+                device_idle_share_outside_graphs=1.0 - span_device / span_wall,
+                max_memory_allocated=peak, **camera)
     emit(line)
     for r in (again, ref, first, res):
         if not (np.isfinite(r.final_cost) and rmse(r.final_cost, n_obs) < 0.55 * r0):
@@ -2012,11 +2394,14 @@ def camera_solve(phase, label, problem, n_obs, solver, dtype, rtol):
                                  f"{ref.summary()}")
         np.testing.assert_allclose(res.final_cost, ref.final_cost, rtol=rtol,
                                    err_msg=f"{label} {solver} jit against python mode")
-    if profiled["landmark_kernel_events"] < profiled["iterations"]:
-        raise AssertionError(f"{label} {solver} {name}: {profiled['landmark_kernel_events']} "
-                             f"landmark kernel events for {profiled['iterations']} iterations")
-    if first_n["captures"] != 2 or n["captures"] or profiled_n["captures"]:
-        raise AssertionError(f"{label} {solver}: captures {first_n}, {n}, {profiled_n}")
+    if first_n["captures"] != 1 or n["captures"] or span_n["captures"]:
+        raise AssertionError(f"{label} {solver}: captures {first_n}, {n}, {span_n}")
+    for c, its in ((first_n, first.iterations), (n, res.iterations),
+                   (span_n, spanned.iterations)):
+        check_host_reads(f"{label} {solver} {name}", c, 1, its, None)
+        if c["replayed_kernel_launches"] != its:
+            raise AssertionError(f"{label} {solver} {name}: {c['replayed_kernel_launches']} "
+                                 f"landmark launches on the device for {its} LM iterations")
     launches = sum(c["replayed_kernel_launches"] + c["eager_kernel_launches"] for c in counts)
     if launches < iterations:
         raise AssertionError(f"{label} {solver} {name}: {launches} landmark kernel launches "
@@ -3369,12 +3754,13 @@ def release_cuda():
     torch.cuda.reset_peak_memory_stats()
 
 
-def scale_run(rung, built, mode, runs, ba, profile=False):
+def scale_run(rung, built, mode, runs, ba, span=False):
     """One dtype and mode of a scale rung through the ladder's solve
     function (the first solve timed apart, then ``runs`` timed solves):
     (the ``Solved``, its line, kernel launches, LM iterations). python mode
     counts the CR solves and retries and the PCG iterations; jit mode its graphs, host
-    reads and graph memory; ``profile`` adds one profiled solve."""
+    reads and graph memory; ``span`` adds one solve with CUDA events around
+    its graph launches (``graph_span_solve``)."""
     import torch
 
     from apex_tpu_torch.benches import ladder
@@ -3409,33 +3795,35 @@ def scale_run(rung, built, mode, runs, ba, profile=False):
                                  "LM iterations")
     else:
         run = solved.solver._jit_cache[built.cp]
-        line.update(capture_seconds=run.capture_seconds, graphs=n["graphs"],
+        solves = 1 + (1 if runs else 0)
+        line.update(capture_seconds=run.capture_seconds,
+                    instantiate_seconds=run.instantiate_seconds, graphs=n["graphs"],
                     replays_per_lm_iteration=n["replays"] / iterations,
+                    host_reads=n["host_reads"], solves=solves,
                     host_reads_per_lm_iteration=n["host_reads"] / iterations,
-                    uncaptured_calls_per_lm_iteration=n["uncaptured_calls"] / iterations)
-        if n["captures"] != 2:
+                    host_read_bound=check_host_reads(
+                        f"scale {built.cp.total_dof} DOF", n, solves, iterations,
+                        host_loop_reason(solved.solver, built.cp)))
+        if n["captures"] != 1:
             raise AssertionError(f"jit: {n['captures']} captures")
+        if ba and n["replayed_kernel_launches"] != iterations:
+            raise AssertionError(f"jit: {n['replayed_kernel_launches']} landmark launches on "
+                                 f"the device for {iterations} LM iterations")
         if ba and launches < iterations:
             raise AssertionError(f"jit: {launches} launches for {iterations} LM iterations")
-        if profile:
+        if span:
             before = graph_counters()
-            profiled = profile_solve(lambda: solved.solver.optimize(built.cp))
-            p_launches = sum(graph_counters()[k] - before[k]
+            spanned, wall, device = graph_span_solve(lambda: solved.solver.optimize(built.cp))
+            s_launches = sum(graph_counters()[k] - before[k]
                              for k in ("eager_kernel_launches", "replayed_kernel_launches"))
-            launches += p_launches
-            iterations += profiled["iterations"]
-            line["profile"] = dict(
-                device_idle_share=profiled["device_idle_share"],
-                iterations=profiled["iterations"],
-                device_events_per_lm_iteration=profiled["device_events_per_lm_iteration"],
-                top_device_ops_ms=profiled["top_device_ops_ms"][:5],
-                landmark_kernel_events=profiled["landmark_kernel_events"],
-                landmark_kernel_us_per_launch=profiled["landmark_kernel_ms"] * 1e3
-                / max(profiled["landmark_kernel_events"], 1),
-                kernel_launches=p_launches)
-            if profiled["landmark_kernel_events"] < profiled["iterations"]:
-                raise AssertionError(f"profile: {profiled['landmark_kernel_events']} landmark "
-                                     f"kernel events for {profiled['iterations']} LM iterations")
+            launches += s_launches
+            iterations += spanned.iterations
+            line["span"] = dict(iterations=spanned.iterations, graph_device_seconds=device,
+                                graph_span_wall_seconds=wall, kernel_launches=s_launches,
+                                device_idle_share_outside_graphs=1.0 - device / wall)
+            if ba and s_launches != spanned.iterations:
+                raise AssertionError(f"span: {s_launches} landmark launches on the device "
+                                     f"for {spanned.iterations} LM iterations")
         release_cuda()
         line["graph_memory_reserved_gib"] = (torch.cuda.memory_reserved() - reserved0) / GiB
     return solved, line, (launches if ba else 0), (iterations if ba else 0)
@@ -3555,7 +3943,14 @@ def scale_fixed_iterations(built, iterations=5):
                 raise AssertionError(f"venice python: {run} launches for {its} LM iterations")
         else:
             out.update(trace, capture_seconds=lm._jit_cache[built.cp].capture_seconds,
-                       host_reads_per_lm_iteration=n["host_reads"] / its)
+                       instantiate_seconds=lm._jit_cache[built.cp].instantiate_seconds,
+                       host_reads=n["host_reads"],
+                       host_reads_per_lm_iteration=n["host_reads"] / its,
+                       host_read_bound=check_host_reads("venice fixed iterations", n, 2, its,
+                                                        None))
+            if n["replayed_kernel_launches"] != its:
+                raise AssertionError(f"venice jit: {n['replayed_kernel_launches']} landmark "
+                                     f"launches on the device for {its} LM iterations")
             if (res.iterations, res.status) != (python.iterations, python.status):
                 raise AssertionError(f"venice jit: {res.summary()} vs python {python.summary()}")
             np.testing.assert_allclose(res.final_cost, python.final_cost,
@@ -3595,8 +3990,9 @@ def phase_scale(smi, cpu):
     through ``schur`` (explicit) once. One line per rung as it ends. Gates:
     ``scale_gates`` (f64), ``scale_quality`` (every dtype and mode), one
     kernel launch per BA LM iteration in python mode; venice's unseen
-    landmarks kept; one profiled venice f64 jit solve with the kernel in it
-    once per LM iteration; ``scale_fixed_iterations`` at venice;
+    landmarks kept; one more venice f64 jit solve with CUDA events around
+    its graph launches, the kernel in it once per LM iteration;
+    ``scale_fixed_iterations`` at venice;
     ``graph_memory_trace`` of pose50k's first f64 jit solve. Returns (kernel
     launches, BA LM iterations)."""
     import dataclasses
@@ -3634,7 +4030,7 @@ def phase_scale(smi, cpu):
         reference = python.result
         del python
         jit, line["f64_jit"], n, its = scale_run(rung, built, "jit", 1, ba,
-                                                 profile=name == "venice")
+                                                 span=name == "venice")
         launches, iterations = launches + n, iterations + its
         scale_gates(name, "f64 jit", jit.result, reference, spread)
         scale_quality(name, jit)
@@ -3688,12 +4084,23 @@ def main():
               torch=torch.__version__, cuda=torch.version.cuda,
               allow_tf32=torch.backends.cuda.matmul.allow_tf32))
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from apex_tpu_torch.kernels import graph_conditional as gc
+    from apex_tpu_torch.kernels import spd_inverse as spd
+    from apex_tpu_torch.optim import graphs
+
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    lb.build()
+    with ThreadPoolExecutor(3) as pool:
+        for job in [pool.submit(m.build) for m in (lb, spd, gc)]:
+            job.result()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              source=os.path.relpath(str(lb.SOURCE), REPO),
+              sources=[os.path.relpath(str(m.SOURCE), REPO) for m in (lb, spd, gc)],
+              cuda_runtime_and_driver=gc.versions(),
               config={str(d).replace("torch.", ""): lb.launch_config(d)
-                      for d in (torch.float32, torch.float64)}))
+                      for d in (torch.float32, torch.float64)},
+              spd_config={n: spd.launch_config(torch.float64, n) for n in (3, 9, 15, 44)}))
 
     measured = {}
     for P in (65_132, 993_923):
@@ -3706,6 +4113,15 @@ def main():
             emit(dict(phase="kernel", P=P, dtype=str(dtype).replace("torch.", ""),
                       max_abs_err=kernel_bitwise(P, dtype)[1], bitwise=True))
 
+    phase_capture_census()
+    release_cuda()
+
+    # the SPD inverse kernel's count, from 0: the main path's launches, eager
+    # and replayed by graphs (graphs.replayed: no reset_counters clears it),
+    # and the shapes it was called at
+    spd.launches = 0
+    graphs.replayed["spd_clamped_inv"] = 0
+    spd_shapes = SpdShapes()
     phase_small_parity()
     ds, ba_problem, launches, iterations, implicit = phase_full_slice()
     phase_pose_graph_parity()
@@ -3724,7 +4140,6 @@ def main():
     phase_general_full()
     phase_general_auto()
 
-    from apex_tpu_torch.optim import graphs
 
     phase_jit_parity()
     phase_jit_pose_graphs(sphere_problem, m3500_problem)
@@ -3736,6 +4151,7 @@ def main():
     lb.launches = 0
     graphs.reset_counters()
     launches_jit, iterations_jit = phase_jit_ba(ds, ba_problem)
+    phase_pcg_chunk(ba_problem)
 
     seconds = {"earlier_phases": time.perf_counter() - start}
     t0 = time.perf_counter()
@@ -3800,8 +4216,17 @@ def main():
         raise AssertionError(f"scale: {lb.launches} + {graphs.kernel_launches} kernel "
                              f"launches counted, {launches_scale} summed over its solves")
     emit(dict(phase="seconds", **seconds))
+    # the SPD kernel's launches on the main path, before its own check
+    spd_launches = spd.launches + graphs.replayed["spd_clamped_inv"]
+    spd_shapes.remove()
+    if not spd_launches:
+        raise AssertionError("spd_clamped_inv: no launch on the main path")
+    spd_measured = phase_spd_inverse(spd_shapes)
 
     main_shape = measured[(65_132, torch.float64)]
+    # the SPD kernel's headline: its f64 shape called most on the main path
+    spd_key = max((k for k in spd_shapes if k[2] == "float64"), key=spd_shapes.get)
+    spd_main = spd_measured[spd_key]
     emit({"kernels": [{
         "name": "invert_landmark_blocks",
         "route": "cuda",
@@ -3843,6 +4268,31 @@ def main():
         "shapes": [{key: m[key] for key in ("P", "dtype", "device_us", "bound_us", "share",
                                             "copy_us", "host_us", "call_ms", "plain_ms")}
                    for m in measured.values()],
+    }, {
+        "name": "spd_clamped_inv",
+        "route": "cuda",
+        "source": "apex_tpu_torch/csrc/spd_clamped_inv.cu",
+        # the reference leaves it to XLA: no Pallas kernel; the function
+        "replaces": "apex_tpu/linalg/utils.py:34",
+        "launches": spd_launches,
+        "max_abs_err": spd_main["max_abs_err"],
+        "ms": spd_main["device_us"] / 1e3,
+        "plain_ms": spd_main["plain_ms"],
+        "bound_ms": spd_main["bound_us"] / 1e3,
+        "bound_by": spd_main["bound_by"],
+        # no single PyTorch call computes the clamped inverse; eigh_ms is
+        # the torch.linalg.eigh call inside the plain version
+        "library_ms": None,
+        "eigh_ms": spd_main["eigh_ms"],
+        "device_us": spd_main["device_us"],
+        "share": spd_main["share"],
+        "shape": [spd_key[0], spd_key[1], spd_key[1]],
+        "dtype": "float64",
+        "main_path_shapes": [list(k) + [c] for k, c in sorted(spd_shapes.items())],
+        "shapes": [{key: m[key] for key in ("B", "n", "dtype", "spd_rel_err", "kept_rel_err",
+                                            "clamped_rel_err", "device_us", "bound_us",
+                                            "share", "call_ms", "plain_ms", "eigh_ms")}
+                   for m in spd_measured.values()],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

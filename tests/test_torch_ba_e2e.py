@@ -186,6 +186,7 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import apex_tpu_torch, apex_tpu_torch.cli.bundle_adjustment\n"
         "import apex_tpu_torch.kernels.landmark_blocks, apex_tpu_torch.convert\n"
+        "import apex_tpu_torch.kernels.spd_inverse, apex_tpu_torch.kernels.graph_conditional\n"
         "import apex_tpu_torch.optim.graphs, apex_tpu_torch.cli.pose_graph\n"
         "import apex_tpu_torch.cameras.extended, apex_tpu_torch.manifolds.sim3\n"
         "import apex_tpu_torch.manifolds.sgal3, apex_tpu_torch.manifolds.se23\n"

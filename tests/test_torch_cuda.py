@@ -512,7 +512,7 @@ def test_jit_captured_matches_eager_and_python(card, case):
     cp = _jit_problem(name, fix_first=kind == "gn").compile(dtype=torch.float64, device=card)
     graphs.reset_counters()
     rj = _jit_solver(kind, mode="jit", **kw).optimize(cp)
-    assert graphs.captures == 2 and graphs.replays >= rj.iterations
+    assert graphs.captures == 1 and graphs.replays >= rj.iterations
     status, iterations, cost = _eager_jit(_jit_solver(kind, mode="jit", **kw), cp)
     assert (rj.status, rj.iterations) == (status, iterations)
     np.testing.assert_allclose(rj.final_cost, cost, rtol=1e-10)
@@ -538,20 +538,137 @@ def test_jit_replays_the_landmark_kernel(card, solver):
     assert lb.launches == 1  # the warm-up's eager launch
     assert graphs.kernel_launches == r1.iterations
     r2 = lm.optimize(cp)
-    assert graphs.captures == 2 and lb.captured == 1 and lb.launches == 1
+    assert graphs.captures == 1 and lb.captured == 1 and lb.launches == 1
     assert graphs.kernel_launches == r1.iterations + r2.iterations
     assert (r1.iterations, r1.status) == (r2.iterations, r2.status)
     np.testing.assert_allclose(r2.final_cost, r1.final_cost, rtol=1e-10)
 
 
 def test_jit_timeout_on_the_card(card):
+    """TIMEOUT after the first launch's ceil(16 / 8) = 2 iterations: one
+    read of the status after it, and the result's read."""
+    from apex_tpu_torch.optim import graphs
+
     cfg = apx.LevenbergMarquardtConfig(
         mode="jit", max_iterations=16, cost_tolerance=0.0, parameter_tolerance=0.0,
         gradient_tolerance=0.0, timeout=0.0)
     cp = synthetic.synthetic_pose_graph_3d(n_poses=60, rings=4, seed=0).to_problem().compile(
         dtype=torch.float64, device=card)
+    graphs.reset_counters()
     r = apx.LevenbergMarquardt(cfg).optimize(cp)
     assert r.status == apx.Status.TIMEOUT and r.iterations == 2
+    assert (graphs.launches, graphs.status_reads, graphs.host_reads) == (1, 1, 2)
+
+
+@pytest.mark.parametrize("case", list(JIT_CASES))
+def test_jit_solve_reads_the_result_once(card, case):
+    """A jit solve without a timeout is one launch of one parent graph and
+    one host read of its result; with the QR solvers the LM loop stays on
+    the host (``QR_HOST_LOOP``): one flag read per iteration and one more,
+    plus the QR sweep's retry ladder's test per iteration."""
+    from apex_tpu_torch.optim import graphs
+    from apex_tpu_torch.optim.lm import QR_HOST_LOOP
+
+    name, kind, kw = JIT_CASES[case]
+    cp = _jit_problem(name, fix_first=kind == "gn").compile(dtype=torch.float64, device=card)
+    solver = _jit_solver(kind, mode="jit", **kw)
+    solver.optimize(cp)
+    graphs.reset_counters()
+    r = solver.optimize(cp)
+    run = solver._jit_cache[cp]
+    qr = kw["linear_solver_type"] in ("dense_qr", "sparse_qr")
+    assert run._step.host_loop == (QR_HOST_LOOP if qr else None)
+    if not qr:
+        assert graphs.host_reads == 1 and graphs.launches == 1
+        assert [type(p).__name__ for p in run.captured.parts] == ["_Parent"]
+    else:
+        ladder = kw["linear_solver_type"] == "sparse_qr"
+        assert graphs.host_reads == (r.iterations + 1) * (1 + ladder) + 1 - ladder
+        assert graphs.replays >= r.iterations
+
+
+def test_parent_graph_branches_and_loops(card):
+    """``graphs.Captured`` on a program with an IF around cuSOLVER and cuBLAS
+    calls and a WHILE holding an IF: one parent graph, whose launch gives
+    the eager program's values, the taken count and the trips counted on
+    the device, and no host read."""
+    from apex_tpu_torch.optim import graphs
+
+    def program(*state):
+        x, y, c = state
+
+        def heavy(x, y, c):
+            M = x.reshape(8, 4, 4)
+            L, _ = torch.linalg.cholesky_ex(M @ M.mT + torch.eye(4, dtype=x.dtype, device=x.device))
+            z = torch.linalg.solve_triangular(L, y.reshape(8, 4, 1), upper=False).reshape(-1)
+            w = torch.zeros_like(y).index_add_(0, torch.arange(32, device=x.device) % 7, z)
+            return x * 0.5, w, c + 1
+
+        x, y, c = graphs.cond_update(c < 100, heavy, x, y, c)
+
+        def body(x, y, c):
+            x, y, c = graphs.cond_update(c % 2 == 0, lambda x, y, c: (x + 1, y, c), x, y, c)
+            return x * 0.9, y, c + 1
+
+        x, y, c = graphs.while_update(lambda x, y, c: c < 10, body, 50, x, y, c)
+        return graphs.assign(state, (x, y, c))
+
+    gen = torch.Generator().manual_seed(0)
+    start = (torch.randn(128, generator=gen, dtype=torch.float64).to(card),
+             torch.randn(32, generator=gen, dtype=torch.float64).to(card),
+             torch.zeros((), dtype=torch.int64, device=card))
+    want = program(*(t.clone() for t in start))
+    state = tuple(t.clone() for t in start)
+    cap = graphs.Captured(program, state, torch.cuda.graph_pool_handle())
+    for t, t0 in zip(state, start):
+        t.copy_(t0)
+    graphs.reset_counters()
+    cap.zero_counts()
+    cap.launch()
+    counts = cap.counts().tolist()
+    assert [type(p).__name__ for p in cap.parts] == ["_Parent"]
+    assert graphs.host_reads == 0 and graphs.launches == 1
+    # the IF taken once, the WHILE's 9 trips, its IF taken on 4 of them
+    assert counts[0::2] == [1, 9, 4]
+    # index_add_ sums in atomic order
+    for got, ref in zip(state, want):
+        torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n", [(1, 1), (64, 1), (300, 3), (16_384, 3), (250, 6), (257, 9),
+                                 (1778, 9), (50, 10), (257, 15), (10, 32), (3, 33), (2, 44),
+                                 (4, 64), (1, 101)])
+def test_spd_kernel_matches_plain(card, dtype, B, n):
+    """The SPD-clamped inverse kernel against its plain version (eigh) on
+    SPD, near-singular and indefinite blocks (an SPD one first in every
+    batch): each kind within chip_smoke's gates at its own scale
+    (``spd_errors``), one launch per call."""
+    from apex_tpu_torch.kernels import spd_inverse as spd
+    from chip_smoke import SPD_KEPT_RTOL, SPD_RTOL, spd_blocks, spd_errors
+
+    H = torch.as_tensor(spd_blocks(B, n), dtype=dtype, device=card)
+    before = spd.launches
+    k = spd.spd_clamped_inv(H)
+    assert spd.launches == before + 1
+    p = spd.spd_clamped_inv_plain(H)
+    torch.cuda.synchronize()
+    assert torch.isfinite(k).all()
+    full, kept, clamped = spd_errors(H, k, p)
+    name = str(dtype).replace("torch.", "")
+    assert full <= SPD_RTOL[name] and clamped <= SPD_RTOL[name]
+    assert kept <= SPD_KEPT_RTOL[name]
+
+
+def test_spd_kernel_raises_outside_its_domain(card):
+    from apex_tpu_torch.kernels import spd_inverse as spd
+
+    with pytest.raises(ValueError, match="block size"):
+        spd.spd_clamped_inv(torch.zeros(1, 1025, 1025, dtype=torch.float64, device=card))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        spd.spd_clamped_inv(torch.zeros(4, 3, 3, dtype=torch.float16, device=card))
+    with pytest.raises(ValueError, match=r"\[B, n, n\]"):
+        spd.spd_clamped_inv(torch.zeros(4, 3, 2, dtype=torch.float64, device=card))
 
 
 # the paths jit mode took last (ROADMAP A.8b): DogLeg, the QR sweep, plain
@@ -570,12 +687,12 @@ JIT_A8B_CASES = {
 
 @pytest.mark.parametrize("case", list(JIT_A8B_CASES))
 def test_jit_a8b_paths_captured_match_cpu(card, case, monkeypatch):
-    """Each path captures (two programs: the initial state and the step),
-    a second solve replays them without a new capture and gives the first
-    one's result, plain PCG runs its preconditioner's eigh outside the
-    graphs once per LM iteration, and the captured solve gives the CPU's
-    jit solve: the same iterations and status, final cost within rtol
-    1e-8 (index_add_ sums in atomic order)."""
+    """Each path captures (one program: the initial state and the LM
+    loop), a second solve launches it without a new capture and gives the
+    first one's result, plain PCG launches the SPD inverse kernel inside
+    the graph once per variable pool and LM iteration, and the captured
+    solve gives the CPU's jit solve: the same iterations and status, final
+    cost within rtol 1e-8 (index_add_ sums in atomic order)."""
     from apex_tpu_torch.linalg import sparse_general as sg
     from apex_tpu_torch.optim import graphs
 
@@ -588,12 +705,13 @@ def test_jit_a8b_paths_captured_match_cpu(card, case, monkeypatch):
     cp = problem.compile(dtype=torch.float64, device=card)
     solver = _jit_solver(kind, mode="jit", **kw)
     graphs.reset_counters()
+    spd_before = graphs.replayed["spd_clamped_inv"]
     r1 = solver.optimize(cp)
-    assert graphs.captures == 2 and graphs.replays >= r1.iterations
+    assert graphs.captures == 1 and graphs.replays >= r1.iterations
     if kw["linear_solver_type"] == "pcg":
-        assert graphs.uncaptured_calls == r1.iterations
+        assert graphs.replayed["spd_clamped_inv"] - spd_before == r1.iterations * len(cp.pools)
     r2 = solver.optimize(cp)
-    assert graphs.captures == 2 and len(solver._jit_cache) == 1
+    assert graphs.captures == 1 and len(solver._jit_cache) == 1
     assert (r2.iterations, r2.status) == (r1.iterations, r1.status)
     np.testing.assert_allclose(r2.final_cost, r1.final_cost, rtol=1e-8)
     rh = _jit_solver(kind, mode="jit", **kw).optimize(problem.compile(dtype=torch.float64,
@@ -675,7 +793,7 @@ def test_selfcal_jit_captured_matches_cpu(card, model, solver):
     graphs.reset_counters()
     rj = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(mode="jit", **kw)).optimize(
         problem.compile(dtype=torch.float64, device=card))
-    assert graphs.captures == 2 and graphs.kernel_launches >= rj.iterations
+    assert graphs.captures == 1 and graphs.kernel_launches >= rj.iterations
     rh = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(**kw)).optimize(
         problem.compile(dtype=torch.float64, device="cpu"))
     assert rj.converged and (rj.iterations, rj.status) == (rh.iterations, rh.status)
@@ -713,7 +831,7 @@ def test_extended_chain_jit_captured_matches_cpu(card, gname):
     graphs.reset_counters()
     rj = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
         max_iterations=60, mode="jit")).optimize(problem.compile(device=card))
-    assert graphs.captures == 2
+    assert graphs.captures == 1
     rh = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(max_iterations=60)).optimize(
         problem.compile(device="cpu"))
     assert rj.converged and (rj.iterations, rj.status) == (rh.iterations, rh.status)
@@ -729,7 +847,7 @@ def test_autodiff_factor_jit_captured_on_the_card(card):
     graphs.reset_counters()
     rj = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
         max_iterations=100, mode="jit")).optimize(problem.compile(device=card))
-    assert graphs.captures == 2
+    assert graphs.captures == 1
     rh = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(max_iterations=100)).optimize(
         problem.compile(device="cpu"))
     assert (rj.iterations, rj.status) == (rh.iterations, rh.status) and rj.converged
