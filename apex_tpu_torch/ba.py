@@ -21,8 +21,10 @@ from .core.losses import HuberLoss, Loss
 from .core.problem import Problem
 from .factors.projection import OPTIMIZE_MODES, ProjectionFactor
 from .io.bal import BalDataset
+from .utils.profiling import annotate
 
 
+@annotate("ba.build_ba_problem")
 def build_ba_problem(
     ds: BalDataset,
     mode: str = "self_calibration",

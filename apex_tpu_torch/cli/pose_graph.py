@@ -10,8 +10,12 @@ solvers ``sparse_cholesky``, ``sparse_qr``, ``sparse_general``,
 ``sparse_general`` nor ``pcg``, takes ``sparse_cholesky`` instead).
 ``--platform`` picks the torch device: ``cuda`` (default) or ``cpu``. Asking
 for ``cuda`` on a machine without a card raises. ``--profile`` writes a
-``torch.profiler`` trace of the last solve under the system's temporary
-directory (``utils.profiling.trace``). ``--jit`` runs every optimizer with
+Chrome trace of the last solve under the system's temporary directory: a
+``torch.profiler`` trace (``utils.profiling.trace``), or with ``--jit`` the
+port's own (``utils.profiling.export_chrome_trace``: host spans, the parent
+graphs' launches and the device phase stamps on one clock), since the torch
+profiler cannot name kernels inside conditional graph bodies and once ended
+a profiled jit solve in an illegal address. ``--jit`` runs every optimizer with
 every linear solver in ``mode="jit"`` (the whole solve on the device,
 one CUDA graph with conditional nodes on a card). ``--dataset NAME`` loads a registry entry
 (``io.datasets``) from the cache, ``$APEX_TPU_DATA_DIR`` or
@@ -64,7 +68,8 @@ def build_parser():
     p.add_argument("--fix-first", action="store_true", help="fix the first vertex")
     p.add_argument("--save-output", help="write the optimized graph to this g2o path")
     p.add_argument("--profile", action="store_true",
-                   help=f"write a torch.profiler trace to {TRACE_PATH}")
+                   help=f"write a Chrome trace of the last solve to {TRACE_PATH} "
+                        "(torch.profiler's; with --jit the port's own)")
     p.add_argument("--jit", action="store_true",
                    help="whole solve on the device (every optimizer; one CUDA graph on a card)")
     p.add_argument("--verbose", action="store_true", help="per-iteration table")
@@ -122,8 +127,7 @@ def main(argv=None):
 
     from apex_tpu_torch.device import resolve_device
     from apex_tpu_torch.io import save_g2o
-    from apex_tpu_torch.utils import init_logger
-    from apex_tpu_torch.utils.profiling import trace
+    from apex_tpu_torch.utils import init_logger, profiling
 
     log = init_logger()
     device = resolve_device(args.platform)
@@ -145,8 +149,16 @@ def main(argv=None):
     rows = []
     for kind in optimizers:
         solver = make_solver(kind, args)
-        if args.profile:
-            with trace(str(TRACE_PATH.parent), TRACE_PATH.name):
+        if args.profile and args.jit:
+            # tracing on before the first solve, which captures: its graphs
+            # carry the phase stamps
+            profiling.set_tracing(True)
+            result, elapsed = solve(solver)
+            profiling.export_chrome_trace(str(TRACE_PATH))
+            profiling.set_tracing(False)
+            print(f"[apex-tpu] trace written to {TRACE_PATH}", file=sys.stderr)
+        elif args.profile:
+            with profiling.trace(str(TRACE_PATH.parent), TRACE_PATH.name):
                 result, elapsed = solve(solver)
         else:
             result, elapsed = solve(solver)

@@ -29,6 +29,7 @@ import torch
 from ..device import resolve_device, resolve_dtype
 from ..factors.base import Factor
 from ..manifolds import get as get_manifold
+from ..utils.profiling import annotate
 from .corrector import correct
 from .losses import Loss
 
@@ -311,6 +312,7 @@ class Problem:
             return names_sorted
         return [names_sorted[i] for i in perm]
 
+    @annotate("problem.compile")
     def compile(self, initial_values: Optional[Dict[str, np.ndarray]] = None,
                 dtype=None, device="cuda", ordering: str = "auto") -> "CompiledProblem":
         """Freeze the graph into tensors of ``dtype`` (default
@@ -483,6 +485,7 @@ class CompiledProblem:
     def initial_values(self) -> Tuple[torch.Tensor, ...]:
         return tuple(p.values0 for p in self.pools)
 
+    @annotate("problem.values_dict")
     def values_dict(self, values) -> Dict[str, np.ndarray]:
         """{name: host storage vector}: one read-only host copy per pool,
         each vector a view of its pool's row, as the JAX package hands out

@@ -13,11 +13,11 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..cameras import CameraModel
 from ..cameras import get as get_camera
 from ..manifolds.utils import quat_to_mat, skew
+from ..utils.profiling import span
 from .base import Factor
 
 OPTIMIZE_MODES = {
@@ -113,7 +113,7 @@ class ProjectionFactor(Factor):
 
             R = quat_to_mat(pose[..., 3:])
             p_cam = torch.einsum("...ij,...j->...i", R, p_w) + pose[..., :3]
-            with record_function("camera.project"):
+            with span("camera.project"):
                 uv, valid = camera.project(intr, p_cam)
             # Overflow guard on top of cheirality: a trial step that sweeps a
             # landmark past a camera's focal plane gives |uv| ~ 1/z -> inf,
@@ -126,7 +126,7 @@ class ProjectionFactor(Factor):
             if not compute_jacobian:
                 return r, None
 
-            with record_function("camera.jacobians"):
+            with span("camera.jacobians"):
                 J_pc, J_intr = camera.jacobians(intr, p_cam)
             vm = ok[..., None, None]
 

@@ -16,6 +16,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 
 @dataclasses.dataclass
 class Edge:
@@ -49,6 +51,7 @@ class Graph:
             return "SE3", self.vertices_se3, self.edges_se3
         return "SE2", self.vertices_se2, self.edges_se2
 
+    @annotate("graph.to_problem")
     def to_problem(self, loss=None, fix_first: bool = False):
         """A Problem with one BetweenFactor per edge; vertex i is variable
         ``x{i}``."""

@@ -20,17 +20,18 @@ A failed Cholesky gives NaN for its batch entry, never an exception: the
 and the ladder are ``graphs.cond_update`` / ``graphs.ladder``, the
 reference's ``lax.cond`` and ``while_loop``: a host read each in python
 mode, IF nodes of a captured jit step on a card. Spans named
-``banded.*`` and ``cr.*`` mark the layers for ``torch.profiler``.
+``banded.*`` and ``cr.*`` (``utils.profiling.span``) mark the layers for
+the tracer and ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..optim import graphs
 from ..optim.graphs import cond_update, ladder, while_update
+from ..utils.profiling import span
 
 # Widest block bandwidth the banded path takes; above it LM's sparse_cholesky
 # switches to the general-sparsity tier (linalg/sparse_general.py).
@@ -42,8 +43,9 @@ RETRY_STAGES = 5
 REFINE_RTOL = {torch.float64: 1e-10, torch.float32: 2e-5}
 
 # CR solves, refinement passes and retry stages run since import (or since a
-# caller last set them to 0). Each counts when its Python code runs: once
-# per use in python mode, once per recording under a jit capture.
+# caller last set them to 0), counted where they run (``graphs.count``): in
+# python mode as the code runs, in a captured jit solve from the device
+# counts of the IF and WHILE nodes that ran them; never in the warm-up.
 cr_solves = 0
 cr_refines = 0
 cr_retries = 0
@@ -201,7 +203,7 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
     def solve_once(Dg, Cg, bv):
         args0 = (Dg, Cg, bv)
         levels = []
-        with record_function("cr.eliminate"):
+        with span("cr.eliminate"):
             while Dg.shape[0] > base_blocks:
                 padded = Dg.shape[0] % 2 == 1
                 if padded:
@@ -218,7 +220,7 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
                 levels.append(("recompute", padded) if not levels and recompute_l0
                               else (L, U))
                 Dg, Cg, bv = De, Ce, be
-        with record_function("cr.dense_fold"):
+        with span("cr.dense_fold"):
             nb = Dg.shape[0]
             idx = torch.arange(nb, device=Dg.device)
             A4 = Dg.new_zeros(nb, m, nb, m)
@@ -228,7 +230,7 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
                 A4[idx[:-1], :, idx[1:], :] = Cg[1:].mT
             Lc = _cholesky(A4.reshape(nb * m, nb * m))
             xe = cho_solve(Lc, bv.reshape(-1, 1)).reshape(nb, m)
-        with record_function("cr.back_substitute"):
+        with span("cr.back_substitute"):
             for entry in reversed(levels):
                 if entry[0] == "recompute":
                     d0, c0, b0 = _odd_pad(*args0) if entry[1] else args0
@@ -248,8 +250,7 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
         return xe.reshape(-1)[:n * m]
 
     def solve_blocks(Dg0, Cg, bp, damping=None):
-        global cr_solves
-        cr_solves += 1
+        graphs.count(globals(), "cr_solves")
         damp = damping_tensor(damping, dtype, Dg0.device)
         # mean diagonal magnitude for the retry ladder's first shift
         trace_d = torch.diagonal(Dg0, dim1=-2, dim2=-1).sum() / D + damp
@@ -257,7 +258,7 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
         bb = torch.sum(bp * bp)
 
         def residual2(Dgs, x):
-            with record_function("cr.residual"):
+            with span("cr.residual"):
                 xb = x.reshape(n, m, 1)
                 hx = (Dgs @ xb)[..., 0]
                 hx[1:] += (Cg[1:] @ xb[:-1])[..., 0]
@@ -273,9 +274,8 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
             res, res2 = residual2(Dgs, x)
 
             def refine(x, res, res2):
-                global cr_refines
-                cr_refines += 1
-                with record_function("cr.refine"):
+                graphs.count(globals(), "cr_refines")
+                with span("cr.refine"):
                     x = x + solve_once(Dgs, Cg, res)
                     return (x, *residual2(Dgs, x))
 
@@ -285,10 +285,9 @@ def make_blocktri_cr_core(D: int, m: int, dtype, base_blocks: int | None = None,
         bad2 = retry_rtol ** 2 * bb
 
         def retry(stage, x, res2, reg):
-            global cr_retries
-            cr_retries += 1
+            graphs.count(globals(), "cr_retries")
             reg = BASE_REG * trace_d if stage == 0 else reg * 100.0
-            with record_function("cr.retry"):
+            with span("cr.retry"):
                 return (*attempt(damp + reg), reg)
 
         x, res2 = attempt(damp)
@@ -422,9 +421,9 @@ class BandedNormalAssembler:
     def assemble(self, values):
         """-> (Dg [n,m,m], Cg [n,m,m], g [D], cost), views of one new buffer."""
         cp, m, n = self.cp, self.m, self.n
-        with record_function("banded.linearize"):
+        with span("banded.linearize"):
             vals, cost = band_values(cp, values)
-        with record_function("banded.assemble"):
+        with span("banded.assemble"):
             buf = torch.zeros(self.n_segments, dtype=cp.dtype, device=cp.device)
             buf.index_add_(0, self._ids, vals[self._perm])
         nmm = n * m * m

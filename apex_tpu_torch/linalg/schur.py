@@ -45,21 +45,26 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.problem import CompiledProblem
 from ..kernels import spd_inverse
 from ..kernels.landmark_blocks import invert_landmark_blocks
 from ..optim import graphs
+from ..utils.profiling import span
 from .dense import solve_cholesky_with_retry
 from .utils import bmv as _bmv
 
 
-# PCG solves and their iterations run since import (or since a caller last
-# set them to 0), counted as the loop's Python code runs: exactly in python
-# mode, once per recording under a jit capture.
+# PCG solves, their iterations that did work (PCG still running) and the
+# iterations executed, masked ones after PCG stopped included (jit mode runs
+# PCG_CHUNK per trip of its loop), since import or since a caller last set
+# them to 0. They count where the work runs (``graphs.count``): in python
+# mode as the code runs, in a captured jit solve from the device counts,
+# never in the warm-up. In a captured solve the live iterations are a device
+# count kept only when tracing was on at capture (``utils.profiling``).
 pcg_calls = 0
 pcg_iterations = 0
+pcg_executed = 0
 
 
 def landmark_inverse(Hpp):
@@ -418,14 +423,14 @@ class SchurContext:
         with ``sync_free`` (jit mode) it is one ``graphs.while_update``, the
         reference's ``while_loop``, over chunks of ``graphs.PCG_CHUNK``
         iterations, each masked by a done flag that freezes once set, with
-        the iteration a device counter.
+        the iteration a device counter (and the iterations that did work a
+        second, ``graphs.count_on_device``, where it counts).
 
         ``x0`` warm-starts from the previous LM iteration's camera step. It
         is guarded: if ||S x0 - b|| is not below ||b|| (a damping jump, a
         rejected step), PCG starts from zero instead. The warm start's first
         pass counts as iteration 0."""
-        global pcg_calls
-        pcg_calls += 1
+        graphs.count(globals(), "pcg_calls")
         if rtol is None:
             rtol = self.pcg_rtol_floor
         if max_iter is None:
@@ -464,8 +469,6 @@ class SchurContext:
             return more & ((k < 2) | (zeta >= q_tol))
 
         def iterate(x, r, p, rz, Qp, Qn):
-            global pcg_iterations
-            pcg_iterations += 1
             Sp = apply_S(p)
             denom = dot(p, Sp)
             alpha = (rz / torch.where(denom == 0, torch.ones_like(denom), denom)).to(b.dtype)
@@ -484,6 +487,8 @@ class SchurContext:
                 if not bool(go(k, r, Qp, Qn)):
                     break
                 x, r, p, rz, Qp, Qn = iterate(x, r, p, rz, Qp, Qn)
+                graphs.count(globals(), "pcg_iterations")
+                graphs.count(globals(), "pcg_executed")
             return x
 
         if q_tol is not None:
@@ -493,24 +498,31 @@ class SchurContext:
             Qn, Qp = torch.zeros_like(rz), torch.zeros_like(rz)
         running = torch.ones((), dtype=torch.bool, device=b.device)
         k = torch.zeros((), dtype=torch.int64, device=b.device)
+        # the live-iteration count, a slot of the loop state where it counts
+        live = (torch.zeros_like(k),) if graphs.counts_on_device() else ()
 
         def go_k(k, r, Qp, Qn):
             return go(k, r, Qp, Qn) & (k < max_iter)
 
-        def more(x, r, p, rz, Qp, Qn, running, k):
+        def more(x, r, p, rz, Qp, Qn, running, k, *live):
             # a finished PCG stays finished
             return running & go_k(k, r, Qp, Qn)
 
-        def chunk(x, r, p, rz, Qp, Qn, running, k):
+        def chunk(x, r, p, rz, Qp, Qn, running, k, *live):
+            graphs.count(globals(), "pcg_executed", graphs.PCG_CHUNK)
             for _ in range(graphs.PCG_CHUNK):
                 running = running & go_k(k, r, Qp, Qn)
                 x, r, p, rz, Qp, Qn = graphs.masked_update(
                     running, iterate, x, r, p, rz, Qp, Qn)
                 k = k + 1
-            return x, r, p, rz, Qp, Qn, running, k
+                live = tuple(n + running for n in live)
+            return x, r, p, rz, Qp, Qn, running, k, *live
 
-        return graphs.while_update(more, chunk, -(-max_iter // graphs.PCG_CHUNK),
-                                   x, r, p, rz, Qp, Qn, running, k)[0]
+        state = graphs.while_update(more, chunk, -(-max_iter // graphs.PCG_CHUNK),
+                                    x, r, p, rz, Qp, Qn, running, k, *live)
+        if live:
+            graphs.count_on_device(globals(), "pcg_iterations", state[-1])
+        return state[0]
 
     def _x0_reduced(self, dx_prev):
         """Previous global step -> reduced camera vector (None passes)."""
@@ -544,21 +556,21 @@ class SchurContext:
         truncated PCG the shortcut 0.5 dx^T (lambda dx - g) under-predicts
         and collapses the Nielsen damping."""
         dt = self.cp.dtype
-        with record_function("schur.assemble"):
+        with span("schur.assemble"):
             Hcc, gc, Hpp, gp, Ws, cost = self.assemble(values, damping)
             Hpp_inv = landmark_inverse(Hpp)
             b = -gc + self._w_u(Ws, _bmv(Hpp_inv, gp))
 
         if self.variant == "sparse":
-            with record_function("schur.pair_products"):
+            with span("schur.pair_products"):
                 S = self._schur_dense(Hcc, Hpp_inv, Ws)
-            with record_function("schur.dense_solve"):
+            with span("schur.dense_solve"):
                 # solve_cholesky_with_retry solves (H + shift I) x = -g
                 dxc = solve_cholesky_with_retry(S, -b)
         else:
             dxc = self._solve_reduced_pcg(Hcc, Hpp_inv, Ws, b, iteration, dx_prev)
 
-        with record_function("schur.back_substitute"):
+        with span("schur.back_substitute"):
             return self._back_substitute(Hcc, gc, Hpp, gp, Ws, Hpp_inv, dxc, damping, cost)
 
     def _solve_reduced_pcg(self, Hcc, Hpp_inv, Ws, b, iteration, dx_prev):
@@ -571,14 +583,16 @@ class SchurContext:
             def apply_M(x):
                 return x
         else:
-            inv_blocks = self._entity_prec_inv(
-                Hcc, Hpp_inv, Ws, schur_jacobi=self.preconditioner == "schur_jacobi")
+            with span("schur.precondition"):
+                inv_blocks = self._entity_prec_inv(
+                    Hcc, Hpp_inv, Ws, schur_jacobi=self.preconditioner == "schur_jacobi")
 
             def apply_M(x):
                 return self._hcc_matvec(inv_blocks, x)
 
-        return self._pcg(apply_S, apply_M, b, rtol=self.pcg_rtol(iteration),
-                         x0=self._x0_reduced(dx_prev))
+        with span("schur.pcg"):
+            return self._pcg(apply_S, apply_M, b, rtol=self.pcg_rtol(iteration),
+                             x0=self._x0_reduced(dx_prev))
 
     # Pairs processed per scatter step in the explicit variant. Dense
     # visibility makes the pair count quadratic in cameras per landmark;

@@ -33,9 +33,9 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..optim import graphs
+from ..utils.profiling import span
 from .banded import BASE_REG, _cholesky, cho_solve, damping_tensor, shift_ladder
 
 # ---------------------------------------------------------------------------
@@ -335,7 +335,7 @@ class GeneralSparseCholesky:
         each summed into place with one ``index_add_``."""
         cp, d = self.cp, self.dmax
         pad = torch.nn.functional.pad
-        with record_function("general.assemble"):
+        with span("general.assemble"):
             cost = torch.zeros((), dtype=cp.dtype, device=cp.device)
             h_rows, g_rows = [], []
             for g in cp.groups:
@@ -370,7 +370,7 @@ class GeneralSparseCholesky:
         b = torch.cat([bv, bv.new_zeros(1, d)])
 
         stash = []
-        with record_function("general.eliminate"):
+        with span("general.eliminate"):
             for lv in self._levels_dev:
                 L = _cholesky(B[lv["diag_slots"]])  # [p, d, d]
                 U = B[lv["u_slots"]]  # [p, q, d, d] = H[u, v] blocks
@@ -388,7 +388,7 @@ class GeneralSparseCholesky:
 
         x = B.new_zeros(nv + 1, d)
         if self.R:
-            with record_function("general.core"):
+            with span("general.core"):
                 R = self.R
                 A = B.new_zeros(R, d, R, d)
                 A[self._core_i, :, self._core_j, :] = B[self._core_slots]
@@ -396,7 +396,7 @@ class GeneralSparseCholesky:
                 xb = cho_solve(Lc, b[self._base_ids].reshape(-1, 1))
                 x[self._base_ids] = xb.view(R, d)
 
-        with record_function("general.back_substitute"):
+        with span("general.back_substitute"):
             for lv, (L, W, beta) in zip(reversed(self._levels_dev), reversed(stash)):
                 xn = x[lv["nbrs"]]  # [p, q, d]
                 p, q = xn.shape[0], xn.shape[1]
@@ -430,7 +430,7 @@ class GeneralSparseCholesky:
         x = self._solve_once(B, bv, damp + floor)
 
         def retry(reg):
-            with record_function("general.retry"):
+            with span("general.retry"):
                 return self._solve_once(B, bv, damp + reg)
 
         x, stages = shift_ladder(retry, x, (1e-6 if f32 else BASE_REG) * trace_d)

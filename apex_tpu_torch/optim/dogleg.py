@@ -30,10 +30,10 @@ import weakref
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..core.problem import CompiledProblem
 from ..linalg import dense
+from ..utils.profiling import span
 from . import graphs
 from .common import (
     ConvergenceConfig,
@@ -254,9 +254,9 @@ class DogLeg(LevenbergMarquardt):
                 reuse_count = cache["count"] + 1
                 self.reused_steps += 1
             else:
-                with record_function("dogleg.assemble"):
+                with span("dogleg.assemble"):
                     rep, g, current_cost = assemble(values)
-                with record_function("dogleg.solve"):
+                with span("dogleg.solve"):
                     # mu enters the solve only: rep stays the undamped H
                     dx_gn = hsolve(rep, g, mu)
                 cauchy = _cauchy_point(g, rep, hmatvec)
@@ -264,7 +264,7 @@ class DogLeg(LevenbergMarquardt):
 
             dx = _dogleg_step(g, dx_gn, cauchy, delta)
             predicted = -torch.sum(dx * g) - 0.5 * torch.sum(dx * hmatvec(rep, dx))
-            with record_function("lm.trial_cost"):
+            with span("lm.trial_cost"):
                 new_values = cp.apply_step(values, dx)
                 new_cost_t = cp.cost(new_values)
             # one read-back of this step's scalars
@@ -360,9 +360,9 @@ class DogLeg(LevenbergMarquardt):
             can_reuse = valid & (count < MAX_STEP_REUSE) & (iteration > 0)
 
             def fresh(*_):
-                with record_function("dogleg.assemble"):
+                with span("dogleg.assemble"):
                     rep, g, current_cost = assemble(values)
-                with record_function("dogleg.solve"):
+                with span("dogleg.solve"):
                     dx_gn = hsolve(rep, g, mu)
                 return (*rep, g, dx_gn, _cauchy_point(g, rep, hmatvec), current_cost,
                         torch.zeros_like(count))
@@ -375,7 +375,7 @@ class DogLeg(LevenbergMarquardt):
 
             dx = _dogleg_step(g, dx_gn, cauchy, delta)
             predicted = -torch.sum(dx * g) - 0.5 * torch.sum(dx * hmatvec(rep, dx))
-            with record_function("lm.trial_cost"):
+            with span("lm.trial_cost"):
                 new_values = cp.apply_step(values, dx)
                 new_cost = cp.cost(new_values)
             gradient_norm = torch.linalg.vector_norm(g)

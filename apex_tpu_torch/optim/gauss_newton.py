@@ -14,9 +14,9 @@ import dataclasses
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..core.problem import CompiledProblem
+from ..utils.profiling import span
 from . import graphs
 from .common import ConvergenceConfig, check_convergence, check_convergence_t
 from .lm import LevenbergMarquardt, LevenbergMarquardtConfig
@@ -82,7 +82,7 @@ class GaussNewton(LevenbergMarquardt):
 
         def step(values, damping, nu, iteration, jacobi_scale):
             dx, g, current_cost, scale, _ = solve_fn(values, 0.0, iteration, jacobi_scale)
-            with record_function("lm.trial_cost"):
+            with span("lm.trial_cost"):
                 new_values = cp.apply_step(values, dx)
                 new_cost = cp.cost(new_values)
             # one read-back of this step's scalars
@@ -119,7 +119,7 @@ class GaussNewton(LevenbergMarquardt):
             damping, nu, _, iteration, _, jacobi_scale, _, _, rho, n_succ, n_fail, cost0 = \
                 state[n_pools:]
             dx, g, current_cost, scale, _ = solve_fn(values, 0.0, iteration, jacobi_scale)
-            with record_function("lm.trial_cost"):
+            with span("lm.trial_cost"):
                 new_values = cp.apply_step(values, dx)
                 new_cost = cp.cost(new_values)
             gradient_norm = torch.linalg.vector_norm(g)

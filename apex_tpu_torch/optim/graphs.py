@@ -50,18 +50,29 @@ Counters: ``captures`` (programs captured), ``graphs`` (CUDA graphs in
 them), ``launches`` (launches of parent graphs), ``replays`` (captured
 graphs run by them), ``host_reads`` (device values read by the jit loop:
 branch flags in eager form, the status and the result), ``status_reads``
-(those of the status), ``kernel_launches`` (the landmark kernel's
-launches made by graphs) and ``replayed`` (each captured kernel's, by
-name: ``reset_counters`` leaves it, so a caller can count a kernel across
-code that resets the others). A launch of a graph never calls the
-kernels' wrappers, so each captured graph carries the launches its
-capture recorded. On the device each IF node counts the times it was
-taken and each WHILE node its trips; ``tally`` derives ``replays`` and
-the kernels' launches from those counts once they are read back, with
-the solve's result.
+(those of the status) and ``replayed`` (each captured kernel's launches
+made by graphs, by name: ``reset_counters`` leaves it, so a caller can
+count a kernel across code that resets the others). A launch of a graph
+never calls the kernels' wrappers, so each captured graph carries the
+launches its capture recorded. On the device each IF node counts the
+times it was taken and each WHILE node its trips; ``tally`` derives
+``replays`` and the kernels' launches from those counts once they are read
+back, with the solve's result.
+
+Other modules' work counters (``linalg.banded.cr_*``,
+``linalg.schur.pcg_*``) count where the work runs, and a trace
+(``utils.profiling``) reports each of them. ``count(owner, name)``
+adds now in eager form; under capture the graph being captured carries the
+count, and ``tally`` adds it once per device execution of that graph; the
+warm-up adds nothing. ``count_on_device`` adds a device value (PCG's live
+iterations) through an accumulator read with the result; under capture it
+records only while tracing is on (``utils.profiling``), so that a graph
+captured with tracing off holds no node of it.
 ``launch_hook``, where set, wraps every launch of a parent graph:
-``launch_hook(launch)`` must call ``launch()`` once (to time it with CUDA
-events, say).
+``launch_hook(launch)`` must call ``launch()`` once (the benchmark's
+harness times the launches with it). The program's own timing of the
+launches is the tracer's: with tracing on, its CUDA events wrap each
+launch (``profiling.launch_interval``).
 
 Every call on the steps captures on the H100 with torch 2.11 under the
 default ``preferred_linalg_library``: batched ``cholesky_ex`` and
@@ -74,7 +85,6 @@ capture; no step calls one.
 from __future__ import annotations
 
 import functools
-import time
 import weakref
 
 import torch
@@ -82,6 +92,7 @@ import torch
 from ..kernels import graph_conditional as gc
 from ..kernels import landmark_blocks, spd_inverse
 from ..kernels.build import current_stream
+from ..utils import profiling
 
 # PCG iterations per trip of its device loop in jit mode
 PCG_CHUNK = 4
@@ -92,24 +103,25 @@ launches = 0
 replays = 0
 host_reads = 0
 status_reads = 0
-kernel_launches = 0
 
 # the kernels whose launches a captured graph carries: {name: wrapper module}
 _KERNELS = {"landmark_blocks": landmark_blocks, "spd_clamped_inv": spd_inverse}
 # their launches made by parent graphs and host replays, by name
 replayed = dict.fromkeys(_KERNELS, 0)
 launch_hook = None
+# count_on_device's accumulators: {(owner id, name, device): (owner, name, 0-d int64)}
+_accumulators = {}
 
 # "eager" | "warmup" | "capture"
 _mode = "eager"
 _recorder = None
+for _name in ("launches", "replays", "host_reads"):
+    profiling.watch(globals(), _name)
 
 
 def reset_counters() -> None:
     global captures, graphs, launches, replays, host_reads, status_reads
-    global kernel_launches
     captures = graphs = launches = replays = host_reads = status_reads = 0
-    kernel_launches = 0
 
 
 def read_flag(pred) -> bool:
@@ -139,11 +151,13 @@ class _Mode:
         global _mode, _recorder
         self.prev = _mode, _recorder
         _mode, _recorder = self.mode, self.recorder
+        profiling.set_form(_mode)
         return self.recorder
 
     def __exit__(self, *exc):
         global _mode, _recorder
         _mode, _recorder = self.prev
+        profiling.set_form(_mode)
 
 
 def warmup_mode():
@@ -163,6 +177,58 @@ def recording() -> bool:
     not eager. A call that a conditional node's body cannot hold takes its
     capturable form only then."""
     return _mode != "eager"
+
+
+def count(owner, name, n=1) -> None:
+    """Add ``n`` units of work to ``owner[name]`` (a module's ``globals()``)
+    where the work runs: now in eager form, once per device execution of
+    the graph being captured under capture (``tally``), never in the
+    warm-up form. A trace reports the counter (``profiling.watch``)."""
+    profiling.watch(owner, name)
+    if _mode == "eager":
+        owner[name] += n
+    elif _mode == "capture":
+        _recorder.counted.append((owner, name, n))
+
+
+def counts_on_device() -> bool:
+    """Whether ``count_on_device`` counts: in eager form always, under
+    warm-up and capture only while tracing is on."""
+    return _mode == "eager" or profiling.tracing()
+
+
+def count_on_device(owner, name, value) -> None:
+    """Add the 0-d integer device tensor ``value`` to ``owner[name]`` with
+    the solve's one read (``device_counts``), where ``counts_on_device()``."""
+    if not counts_on_device():
+        return
+    key = (id(owner), name, value.device)
+    if key not in _accumulators:
+        profiling.watch(owner, name)
+        if _mode == "capture":
+            raise RuntimeError(f"{name}: a device count first met under capture; the "
+                               "warm-up makes its accumulator")
+        _accumulators[key] = (owner, name, torch.zeros((), dtype=torch.int64,
+                                                       device=value.device))
+    if _mode != "warmup":
+        _accumulators[key][2].add_(value)
+
+
+def device_counts(device):
+    """count_on_device's accumulators on ``device`` (a tensor's device, with
+    its index): [(owner, name, 0-d tensor)], read with a solve's result and
+    handed to ``add_device_counts``."""
+    return [acc for key, acc in _accumulators.items() if key[2] == device]
+
+
+def zero_device_counts(device) -> None:
+    for _, _, acc in device_counts(device):
+        acc.zero_()
+
+
+def add_device_counts(accumulators, values) -> None:
+    for (owner, name, _), value in zip(accumulators, values):
+        owner[name] += int(value)
 
 
 def assign(state, new):
@@ -257,12 +323,14 @@ def while_update(pred, body, max_trips, *state, warmup_trips=None, host=None):
 
 class _Graph:
     """A captured CUDA graph (``None`` under a recorder that captures
-    nothing), its node count and the kernel launches it recorded."""
+    nothing), its node count, the kernel launches it recorded and the work
+    counted while it was captured (``count``)."""
 
-    def __init__(self, graph, nodes, launched):
+    def __init__(self, graph, nodes, launched, counted=()):
         self.graph = graph
         self.nodes = nodes
         self.launched = launched
+        self.counted = counted
 
 
 class _Branch:
@@ -292,6 +360,7 @@ class _Recorder:
         self.programs = [[]]
         self.graph = None
         self.captured = {}
+        self.counted = []
 
     def append(self, item):
         self.programs[-1].append(item)
@@ -314,13 +383,15 @@ class _Recorder:
     def begin_graph(self):
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.captured = {name: k.captured for name, k in _KERNELS.items()}
+        self.counted = []
         self.graph.capture_begin(pool=self.pool)
 
     def end_graph(self):
         global graphs
         self.graph.capture_end()
         launched = {name: k.captured - self.captured[name] for name, k in _KERNELS.items()}
-        self.append(_Graph(self.graph, gc.nodes(self.graph.raw_cuda_graph()), launched))
+        self.append(_Graph(self.graph, gc.nodes(self.graph.raw_cuda_graph()), launched,
+                           tuple(self.counted)))
         graphs += 1
         self.graph = None
 
@@ -414,18 +485,19 @@ class _Parent:
 
 def _count_replays(graph, execs) -> None:
     """``execs`` runs of the captured ``graph`` in the counters."""
-    global replays, kernel_launches
-    replays += execs
-    kernel_launches += execs * graph.launched["landmark_blocks"]
+    global replays
+    if graph.nodes:
+        replays += execs
     for name, n in graph.launched.items():
         replayed[name] += execs * n
+    for owner, name, n in graph.counted:
+        owner[name] += execs * n
 
 
 def _tally(program, execs, counts) -> None:
     for item in program:
         if isinstance(item, _Graph):
-            if item.nodes:
-                _count_replays(item, execs)
+            _count_replays(item, execs)
         elif not _empty(item.body):
             _tally(item.body, int(counts[item.slot][0]), counts)
 
@@ -437,7 +509,7 @@ def _replay(program):
         if isinstance(item, _Graph):
             if item.nodes:
                 item.graph.replay()
-                _count_replays(item, 1)
+            _count_replays(item, 1)
         elif isinstance(item, _Loop):
             for _ in range(item.max_trips):
                 if not read_flag(item.flag):
@@ -465,35 +537,36 @@ class Captured:
         side.wait_stream(torch.cuda.current_stream())
         # warm-up: every branch runs (library handles and workspaces, the
         # kernels' builds and attributes), on copies of the state
-        with warmup_mode(), torch.cuda.stream(side):
-            fn(*(t.clone() for t in self.state))
-        side.synchronize()
+        with profiling.span("graphs.warmup"):
+            with warmup_mode(), torch.cuda.stream(side):
+                fn(*(t.clone() for t in self.state))
+            side.synchronize()
         # the warm-up's freed blocks stay cached in the default pool, where
         # the capture's private pool cannot take them: hand them back first
         torch.cuda.empty_cache()
-        with torch.cuda.stream(side):
-            self.program = record(fn, self.state, _Recorder(pool))
-        torch.cuda.current_stream().wait_stream(side)
+        with profiling.span("graphs.record"):
+            with torch.cuda.stream(side):
+                self.program = record(fn, self.state, _Recorder(pool))
+            torch.cuda.current_stream().wait_stream(side)
         captures += 1
-        t0 = time.perf_counter()
-        self.parts, stretch = [], []
-        for item in self.program + [None]:
-            if item is None or not isinstance(item, _Graph) and item.host:
-                if not _empty(stretch):
-                    self.parts.append(_Parent(stretch, device))
-                stretch = []
-                if item is not None:
-                    self.parts.append(item)
-            else:
-                stretch.append(item)
+        with profiling.span("graphs.instantiate"):
+            self.parts, stretch = [], []
+            for item in self.program + [None]:
+                if item is None or not isinstance(item, _Graph) and item.host:
+                    if not _empty(stretch):
+                        self.parts.append(_Parent(stretch, device))
+                    stretch = []
+                    if item is not None:
+                        self.parts.append(item)
+                else:
+                    stretch.append(item)
         self.parents = [p for p in self.parts if isinstance(p, _Parent)]
-        # host seconds to build and instantiate the parent graphs
-        self.instantiate_seconds = time.perf_counter() - t0
 
     def zero_counts(self):
         for p in self.parents:
             p.counts.zero_()
             p.launches = 0
+        zero_device_counts(self.state[0].device)
 
     def counts(self):
         """The parents' device counts, one flat int64 tensor."""
@@ -503,7 +576,9 @@ class Captured:
     def launch(self):
         for part in self.parts:
             if isinstance(part, _Parent):
-                part.launch() if launch_hook is None else launch_hook(part.launch)
+                run = part.launch if launch_hook is None else functools.partial(launch_hook,
+                                                                                part.launch)
+                profiling.launch_interval(run, part.device.index)
             else:
                 _replay([part])
 

@@ -46,10 +46,10 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.problem import CompiledProblem
 from ..linalg import dense
+from ..utils.profiling import span
 from . import graphs
 from .common import (
     ConvergenceConfig,
@@ -361,7 +361,7 @@ class LevenbergMarquardt:
         cfg = self.config
 
         def solve_chol(values, damping, iteration, jacobi_scale):
-            with record_function("dense.assemble"):
+            with span("dense.assemble"):
                 H, g, cost = cp.assemble_normal(values)
             if cfg.use_jacobi_scaling:
                 scale = _first_iteration(
@@ -370,7 +370,7 @@ class LevenbergMarquardt:
                 g = g * scale
             else:
                 scale = jacobi_scale
-            with record_function("dense.solve"):
+            with span("dense.solve"):
                 dx = dense.solve_cholesky_with_retry(H, g, damping)
             if cfg.use_jacobi_scaling:
                 dx = dx * scale
@@ -383,7 +383,7 @@ class LevenbergMarquardt:
         cfg = self.config
 
         def solve_qr(values, damping, iteration, jacobi_scale):
-            with record_function("dense.assemble"):
+            with span("dense.assemble"):
                 r, J = cp.assemble_dense_jacobian(values)
             cost = 0.5 * torch.dot(r, r)
             if cfg.use_jacobi_scaling:
@@ -394,7 +394,7 @@ class LevenbergMarquardt:
             else:
                 scale = jacobi_scale
             g = J.mT @ r
-            with record_function("dense.solve"):
+            with span("dense.solve"):
                 dx = dense.solve_qr(r, J, damping)
             if cfg.use_jacobi_scaling:
                 dx = dx * scale
@@ -416,7 +416,7 @@ class LevenbergMarquardt:
             if predicted is None:
                 # exact solve: 0.5 step^T (lambda step - g)
                 predicted = 0.5 * torch.sum(dx * (float(damping) * dx - g))
-            with record_function("lm.trial_cost"):
+            with span("lm.trial_cost"):
                 new_values = cp.apply_step(values, dx)
                 new_cost = cp.cost(new_values)
             # one read-back of this step's scalars
@@ -464,6 +464,10 @@ class LevenbergMarquardt:
         and nu are restored (not DogLeg's trust region), the iteration
         counter starts again at 0, and the solve runs python mode whatever
         ``mode`` says. With observers, ``mode="jit"`` runs python mode too."""
+        with span("lm.solve"):
+            return self._optimize(problem, initial_values, checkpoint)
+
+    def _optimize(self, problem, initial_values, checkpoint) -> SolverResult:
         cfg = self.config
         if cfg.mode not in ("python", "jit"):
             raise ValueError(f"unknown mode {cfg.mode!r}; 'python' or 'jit'")
@@ -647,7 +651,7 @@ class LevenbergMarquardt:
             if predicted is None:
                 # exact solve: 0.5 step^T (lambda step - g)
                 predicted = 0.5 * torch.sum(dx * (damping * dx - g))
-            with record_function("lm.trial_cost"):
+            with span("lm.trial_cost"):
                 new_values = cp.apply_step(values, dx)
                 new_cost = cp.cost(new_values)
             gradient_norm = torch.linalg.vector_norm(g)
@@ -689,14 +693,20 @@ class LevenbergMarquardt:
         step runs eagerly, the status read before each iteration."""
         cfg = self.config
         start = time.perf_counter()
-        run = self._jit_cache.get(cp)
-        if run is None:
-            run = self._jit_cache[cp] = _JitRun(
-                cp, self.JIT_STATE, self._make_device_init(cp),
-                self._make_device_step(cp), cfg.max_iterations)
         chunk = max(1, -(-cfg.max_iterations // 8))
         # the step sets MAX_ITERATIONS_REACHED at this cap itself
         cap = max(1, cfg.max_iterations)
+        with span("lm.launch"):
+            run = self._jit_cache.get(cp)
+            if run is None:
+                with span("lm.capture"):
+                    run = self._jit_cache[cp] = _JitRun(
+                        cp, self.JIT_STATE, self._make_device_init(cp),
+                        self._make_device_step(cp), cfg.max_iterations)
+            if run.captured is None:
+                graphs.zero_device_counts(run.state[0].device)
+            elif cfg.timeout is None:
+                run.launch(first=True, cap=cap)
         if run.captured is None:
             run.init()
             done = 0
@@ -712,13 +722,14 @@ class LevenbergMarquardt:
                 done += 1
             return self._finish_jit(cp, start, run, status)
         if cfg.timeout is None:
-            run.launch(first=True, cap=cap)
             return self._finish_jit(cp, start, run, None)
         done = 0
         while True:
             done = min(done + chunk, cap)
-            run.launch(first=done <= chunk, cap=done)
-            status = Status(run.status())
+            with span("lm.launch"):
+                run.launch(first=done <= chunk, cap=done)
+            with span("lm.read"):
+                status = Status(run.status())
             if status != Status.RUNNING:
                 break
             if time.perf_counter() - start >= cfg.timeout:
@@ -733,43 +744,51 @@ class LevenbergMarquardt:
         per-iteration statistics."""
         values = run.state[:len(cp.pools)]
         st = dict(zip(self.JIT_STATE, run.state[len(cp.pools):]))
-        graphs.host_reads += 1
-        scalars = torch.stack([
-            st[k].to(torch.float64) for k in ("initial_cost", "cost", "iteration",
-                                              "gradient_norm", "step_norm", "n_success",
-                                              "n_fail", "status", *self.JIT_COUNTERS)])
-        if run.captured is not None:
-            scalars = torch.cat([scalars, run.captured.counts().to(torch.float64)])
-        cost0, cost, iteration, gnorm, snorm, n_succ, n_fail, device_status, *rest = \
-            scalars.tolist()
-        counts, nodes = rest[:len(self.JIT_COUNTERS)], rest[len(self.JIT_COUNTERS):]
-        if run.captured is not None:
-            run.captured.tally([int(c) for c in nodes])
-        if status is None:
-            status = Status(int(device_status))
-        for name, count in zip(self.JIT_COUNTERS, counts):
-            setattr(self, name, getattr(self, name) + int(count))
-        covariances = None
-        if self.config.compute_covariances:
-            from ..core.covariance import compute_covariances
+        # a state tensor's device carries its index, where cp.device may not
+        accumulators = graphs.device_counts(values[0].device)
+        with span("lm.read"):
+            graphs.host_reads += 1
+            scalars = [torch.stack([
+                st[k].to(torch.float64) for k in ("initial_cost", "cost", "iteration",
+                                                  "gradient_norm", "step_norm", "n_success",
+                                                  "n_fail", "status", *self.JIT_COUNTERS)])]
+            scalars += [acc.to(torch.float64).reshape(1) for _, _, acc in accumulators]
+            if run.captured is not None:
+                scalars.append(run.captured.counts().to(torch.float64))
+            cost0, cost, iteration, gnorm, snorm, n_succ, n_fail, device_status, *rest = \
+                (torch.cat(scalars) if len(scalars) > 1 else scalars[0]).tolist()
+        with span("lm.result"):
+            k = len(self.JIT_COUNTERS)
+            counts, device, nodes = rest[:k], rest[k:k + len(accumulators)], \
+                rest[k + len(accumulators):]
+            if run.captured is not None:
+                run.captured.tally([int(c) for c in nodes])
+            graphs.add_device_counts(accumulators, device)
+            if status is None:
+                status = Status(int(device_status))
+            for name, count in zip(self.JIT_COUNTERS, counts):
+                setattr(self, name, getattr(self, name) + int(count))
+            covariances = None
+            if self.config.compute_covariances:
+                from ..core.covariance import compute_covariances
 
-            covariances = compute_covariances(cp, values)
-        iteration = int(iteration)
-        return SolverResult(
-            status=status,
-            iterations=iteration,
-            initial_cost=cost0,
-            final_cost=cost,
-            elapsed_seconds=time.perf_counter() - start,
-            variables=cp.values_dict(values),
-            final_gradient_norm=gnorm,
-            final_step_norm=snorm,
-            cost_evaluations=iteration + 1,
-            jacobian_evaluations=iteration,
-            successful_steps=int(n_succ),
-            unsuccessful_steps=int(n_fail),
-            covariances=covariances,
-        )
+                covariances = compute_covariances(cp, values)
+            iteration = int(iteration)
+            return SolverResult(
+                status=status,
+                iterations=iteration,
+                initial_cost=cost0,
+                final_cost=cost,
+                elapsed_seconds=time.perf_counter() - start,
+                variables=cp.values_dict(values),
+                final_gradient_norm=gnorm,
+                final_step_norm=snorm,
+                cost_evaluations=iteration + 1,
+                jacobian_evaluations=iteration,
+                successful_steps=int(n_succ),
+                unsuccessful_steps=int(n_fail),
+                covariances=covariances,
+            )
 
 
 class _JitRun:
@@ -782,13 +801,11 @@ class _JitRun:
     launch. On the CPU the same functions are called eagerly."""
 
     def __init__(self, cp: CompiledProblem, names, init, step, max_iterations):
-        t0 = time.perf_counter()
         self._init, self._step = init, step
         n_pools = len(cp.pools)
         self._status = n_pools + names.index("status")
         self.state = init()
         self.captured = None
-        self.instantiate_seconds = 0.0
         if cp.device.type == "cuda":
             self.first = torch.ones((), dtype=torch.bool, device=cp.device)
             self.cap = torch.zeros((), dtype=torch.int64, device=cp.device)
@@ -798,9 +815,6 @@ class _JitRun:
             self.captured = graphs.Captured(program, self.state,
                                             torch.cuda.graph_pool_handle())
             torch.cuda.synchronize(cp.device)
-            self.instantiate_seconds = self.captured.instantiate_seconds
-        # host seconds to build the state, warm up, capture and instantiate
-        self.capture_seconds = time.perf_counter() - t0
 
     def init(self):
         self.state = self._init(*self.state)

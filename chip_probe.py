@@ -9,18 +9,41 @@
     python3 chip_probe.py small               # two small jit solves (BA
                                               # implicit, pcg), to run under
                                               # a memory checker
+    python3 chip_probe.py trace CELL [SECONDS] [--seed N]
+                                              # a benchmark cell's warm loop
+                                              # traced (utils.profiling)
+    python3 chip_probe.py trace_cost CELL [SECONDS]
+                                              # the tracer's cost, in turns
+                                              # in one process
 
 ``camera --host`` keeps every loop and branch on the host: the same steps
 replayed as plain PyTorch CUDA graphs, no conditional node. ``grid20
 --root DIR`` imports ``apex_tpu_torch`` from DIR (an older checkout) and
 times python mode there too, with one potrf, against the panel
-Cholesky of ``linalg/banded.py`` where DIR has one. Each prints one JSON
+Cholesky of ``linalg/banded.py`` where DIR has one. ``trace`` builds a
+cell of ``BENCHMARK.json`` with the benchmark's own generator and program
+calls (``benchmark/harness``, read, not changed), switches tracing on before
+the build, solves once (the capture), then re-solves for SECONDS (default
+30) and reports the set-up's spans, the stamped phases per LM iteration,
+the device's idle time by host span, the work counters and the anchor;
+the parent-graph launches are timed by the tracer's own CUDA events, as
+the benchmark's ``graph_ms_per_iter`` times them by its launch hook.
+``trace_summary`` computes what the benchmark's traced per-layer metrics
+would read; it goes once the benchmark has readers of its own, which must
+give its numbers. ``trace_cost`` builds the cell once, captures it for two
+solvers, one with tracing off and one with it on (stamps in its graphs),
+and solves with each in turns for SECONDS each: the first with tracing off
+for its host time and with tracing on (its graphs hold no stamp) for its
+launches' device time, the second with tracing on. Each prints one JSON
 object per result and a process that faults exits non-zero, so a fault
 ends only its own probe.
 """
 
+import argparse
+import collections
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -209,11 +232,214 @@ def probe_small():
                   status=res.status.name, final_cost=res.final_cost))
 
 
+def _ms(span):
+    return (span["end_ns"] - span["start_ns"]) / 1e6
+
+
+def trace_summary(cell, setup, trace, iterations, solves):
+    """The traced numbers of ``probe_trace``: per-phase device ms per LM
+    iteration, idle seconds by span, the set-up's spans and what the
+    benchmark's traced metrics would read."""
+    from apex_tpu_torch.utils import profiling
+
+    phases = {p["path"]: dict(ms_per_iter=p["total_ns"] / 1e6 / iterations,
+                              per_iter=p["count"] / iterations) for p in trace["phases"]}
+
+    def ms(*names):
+        return sum(phases[n]["ms_per_iter"] for n in names if n in phases)
+
+    top = sum(v["ms_per_iter"] for k, v in phases.items() if ">" not in k)
+    idle = profiling.idle_by_span(trace)
+    inside = sum(v for k, v in idle.items() if k != profiling.NO_SPAN)
+    unnamed = idle.get("lm.solve", 0.0)
+    tracer = idle.get(profiling.TRACER_SPAN, 0.0)
+    results = [_ms(s) for s in trace["spans"] if s["name"] == "lm.result"]
+    # a counter that never counted is not in the trace
+    work = collections.defaultdict(int, trace["counters"])
+    bundle = "ba_" in cell
+    if bundle:
+        linearize = ms("schur.assemble")
+        linear = ms("schur.precondition", "schur.pcg", "schur.back_substitute")
+    else:
+        linearize = ms("banded.linearize", "banded.assemble")
+        linear = sum(v["ms_per_iter"] for k, v in phases.items()
+                     if ">" not in k and k.startswith("cr."))
+    metrics = dict(result_ms=sum(results) / len(results),
+                   capture_s=setup.get("lm.capture"),
+                   linearize_ms_per_iter=linearize, linear_solve_ms_per_iter=linear)
+    if bundle:
+        metrics.update(pcg_iters_per_lm_iter=work["pcg_iterations"] / iterations,
+                       pcg_masked_share=100.0 * (work["pcg_executed"] - work["pcg_iterations"])
+                       / work["pcg_executed"])
+    else:
+        metrics["cr_extra_solves_share"] = (100.0 * (work["cr_refines"] + work["cr_retries"])
+                                            / work["cr_solves"])
+    # host gaps inside each solve that no child span covers: before the
+    # first child, between children, after the last (us)
+    children = {}
+    for s in trace["spans"]:
+        if s["parent"] is not None and s["name"] not in (profiling.GC_SPAN,
+                                                         profiling.TRACER_SPAN):
+            children.setdefault(s["parent"], []).append(s)
+    gaps = {"before": [], "between": [], "after": []}
+    for root in (s for s in trace["spans"] if s["name"] == "lm.solve"):
+        kids = sorted(children.get(root["id"], []), key=lambda s: s["start_ns"])
+        if kids:
+            gaps["before"].append(kids[0]["start_ns"] - root["start_ns"])
+            gaps["after"].append(root["end_ns"] - kids[-1]["end_ns"])
+            gaps["between"] += [b["start_ns"] - a["end_ns"] for a, b in zip(kids, kids[1:])]
+    solve_gaps_us = {k: dict(median=statistics.median(v) / 1e3, max=max(v) / 1e3,
+                             total=sum(v) / 1e3) for k, v in gaps.items() if v}
+    return dict(metrics=metrics, setup_spans_s=setup, stamped_ms_per_iter=top, phases=phases,
+                solve_gaps_us=solve_gaps_us,
+                idle_s=idle, idle_inside_solves_s=inside,
+                # the program's spans, without and with the tracer's own
+                idle_named_share=(inside - unnamed - tracer) / inside if inside else None,
+                idle_named_share_with_tracer=(inside - unnamed) / inside if inside else None,
+                work_per_solve={k: v / solves for k, v in trace["counters"].items()},
+                anchors=trace["anchors"], dropped=trace["dropped"])
+
+
+def probe_trace(cell, seconds, seed, device="cuda", spec=None):
+    """A benchmark cell's warm loop (``benchmark/loops/warm.py``'s calls),
+    traced from before the build."""
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "benchmark"))
+    from harness import cell as bench_cell
+    from harness import generators, program
+
+    from apex_tpu_torch.utils import profiling
+
+    spec = spec or bench_cell.load(REPO, cell)
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    data = generators.make(spec["config"]["generator"], seed)
+    opts = bench_cell.solver_options(spec, data)
+    kind = spec["config"]["problem"]
+    profiling.set_tracing(True)
+    try:
+        problem = program.build(kind, program.to_input(kind, data),
+                                spec["config"].get("build", {}))
+        cp = program.compile_problem(problem, opts, device)
+        lm = program.solver(opts)
+        sync()
+        reserved = torch.cuda.memory_reserved(device) if cuda else 0
+        lm.optimize(cp)
+        sync()
+        out = dict(probe="trace", cell=cell, seed=seed,
+                   graph_pool_reserved_gib=((torch.cuda.memory_reserved(device) - reserved)
+                                            / 2**30 if cuda else None))
+        setup = {}
+        for s in profiling.collect_trace()["spans"]:
+            if s["name"] not in ("lm.solve", profiling.TRACER_SPAN):
+                setup[s["name"]] = setup.get(s["name"], 0.0) + _ms(s) / 1e3
+        profiling.reset_trace()
+        walls, iterations = [], 0
+        t_start = time.perf_counter()
+        while time.perf_counter() - t_start < seconds:
+            t0 = time.perf_counter()
+            res = lm.optimize(cp)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            iterations += res.iterations
+        window = time.perf_counter() - t_start
+        trace = profiling.collect_trace()
+    finally:
+        profiling.set_tracing(False)
+    graph_s = sum(x["end_ns"] - x["start_ns"] for x in trace["launches"]) / 1e9
+    out.update(solves=len(walls), window_s=window, solve_s=window / len(walls),
+               lm_iters=iterations / len(walls), graph_ms_per_iter=1e3 * graph_s / iterations,
+               outside_graph_share=100.0 * (1.0 - graph_s / sum(walls)))
+    out.update(trace_summary(cell, setup, trace, iterations, len(walls)))
+    out["stamped_share_of_graph"] = (out["stamped_ms_per_iter"] / out["graph_ms_per_iter"]
+                                     if graph_s else None)
+    emit(out)
+
+
+def probe_trace_cost(cell, seconds, seed=2**31 + 17):
+    """The tracer's cost on a benchmark cell in one process: the problem
+    built once and captured by two solvers, ``off`` with tracing off (no
+    stamps in its graphs) and ``on`` with it on; then, in turns for
+    ``seconds`` of each side: ``off`` with tracing off (its host seconds
+    per solve), ``off`` with tracing on (its parent graphs' device ms per
+    LM iteration, from the tracer's CUDA events around each launch, as
+    ``graph_ms_per_iter``: no stamps), and ``on`` with tracing on (both)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "benchmark"))
+    from harness import cell as bench_cell
+    from harness import generators, program
+
+    from apex_tpu_torch.utils import profiling
+
+    spec = bench_cell.load(REPO, cell)
+    device = torch.device("cuda")
+    data = generators.make(spec["config"]["generator"], seed)
+    opts = bench_cell.solver_options(spec, data)
+    kind = spec["config"]["problem"]
+    problem = program.build(kind, program.to_input(kind, data), spec["config"].get("build", {}))
+    cp = program.compile_problem(problem, opts, device)
+    solvers = {"off": program.solver(opts), "on": program.solver(opts)}
+    for side, lm in solvers.items():
+        profiling.set_tracing(side == "on")
+        lm.optimize(cp)
+        torch.cuda.synchronize()
+    profiling.set_tracing(False)
+    walls = {side: [] for side in solvers}
+    graph_ns = dict.fromkeys(solvers, 0)
+    iterations = dict.fromkeys(solvers, 0)
+
+    def solve(side, traced):
+        profiling.set_tracing(traced)
+        try:
+            t0 = time.perf_counter()
+            res = solvers[side].optimize(cp)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = profiling.collect_trace()["launches"] if traced else []
+        finally:
+            profiling.set_tracing(False)
+        return res, wall, sum(x["end_ns"] - x["start_ns"] for x in launches)
+
+    while min(sum(w) for w in walls.values()) < seconds:
+        _, wall, _ = solve("off", False)
+        walls["off"].append(wall)
+        res, _, ns = solve("off", True)
+        graph_ns["off"] += ns
+        iterations["off"] += res.iterations
+        res, wall, ns = solve("on", True)
+        walls["on"].append(wall)
+        graph_ns["on"] += ns
+        iterations["on"] += res.iterations
+    out = dict(probe="trace_cost", cell=cell, seed=seed)
+    for side in solvers:
+        out[side] = dict(solves=len(walls[side]),
+                         solve_s_median=statistics.median(walls[side]),
+                         solve_s_mean=sum(walls[side]) / len(walls[side]),
+                         graph_ms_per_iter=graph_ns[side] / 1e6 / iterations[side])
+    emit(out)
+
+
 def main(argv):
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_probe: needs a CUDA card")
+    if argv[0] in ("trace", "trace_cost"):
+        p = argparse.ArgumentParser(prog=f"chip_probe.py {argv[0]}")
+        p.add_argument("cell")
+        p.add_argument("seconds", nargs="?", type=float, default=30.0)
+        p.add_argument("--seed", type=int, default=2**31 + 17)
+        args = p.parse_args(argv[1:])
+        if argv[0] == "trace_cost":
+            return probe_trace_cost(args.cell, args.seconds, args.seed)
+        return probe_trace(args.cell, args.seconds, args.seed)
     root = REPO
     if "--root" in argv:
         root = os.path.abspath(argv[argv.index("--root") + 1])

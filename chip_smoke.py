@@ -1571,7 +1571,7 @@ def graph_counters():
     return dict(captures=graphs.captures, graphs=graphs.graphs, launches=graphs.launches,
                 replays=graphs.replays, host_reads=graphs.host_reads,
                 status_reads=graphs.status_reads,
-                replayed_kernel_launches=graphs.kernel_launches,
+                replayed_kernel_launches=graphs.replayed["landmark_blocks"],
                 eager_kernel_launches=lb.launches,
                 replayed_spd_launches=graphs.replayed["spd_clamped_inv"],
                 eager_spd_launches=spd.launches)
@@ -1616,36 +1616,30 @@ def counted_solve(solver, cp, **kw):
 
 
 def graph_span_solve(solve):
-    """One synchronized jit solve with CUDA events around each launch of a
-    parent graph (``graphs.launch_hook``): (result, wall seconds, device
-    seconds between the events). The share of the wall time outside them
-    is time the card spent on no graph of the solve: the host's set-up,
-    reads and result. torch.profiler sees no kernel of the BA solves'
-    parent graphs (PERF.md, section 6), so its busy time cannot give the
-    idle share there."""
+    """One synchronized jit solve with tracing on (``utils.profiling``),
+    whose CUDA events around each launch of a parent graph give its device
+    intervals: (result, wall seconds, device seconds between the events).
+    The solver's graphs were captured before, with tracing off, so they
+    hold no stamp. The share of the wall time outside the launches is time
+    the card spent on no graph of the solve: the host's set-up, reads and
+    result. torch.profiler sees no kernel of the BA solves' parent graphs
+    (PERF.md, section 6), so its busy time cannot give the idle share
+    there."""
     import torch
 
-    from apex_tpu_torch.optim import graphs
+    from apex_tpu_torch.utils import profiling
 
-    spans = []
-
-    def timed(launch):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        launch()
-        end.record()
-        spans.append((start, end))
-
-    graphs.launch_hook = timed
+    torch.cuda.synchronize()
+    profiling.set_tracing(True)
     try:
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = solve()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        launches = profiling.collect_trace()["launches"]
     finally:
-        graphs.launch_hook = None
-    return res, wall, sum(s.elapsed_time(e) for s, e in spans) / 1e3
+        profiling.set_tracing(False)
+    return res, wall, sum(x["end_ns"] - x["start_ns"] for x in launches) / 1e9
 
 
 def jit_full(phase, label, problem, make, dtype, gate, rtol=1e-10, landmark=False):
@@ -1698,7 +1692,6 @@ def jit_full(phase, label, problem, make, dtype, gate, rtol=1e-10, landmark=Fals
     spanned, span_wall, span_device = graph_span_solve(lambda: jit.optimize(cp))
     span_n = {k: v - before[k] for k, v in graph_counters().items()}
     rtol = max(rtol, 10.0 * spread)
-    run = jit._jit_cache[cp]
     host_loop = host_loop_reason(jit, cp)
     line = dict(phase=phase, graph=label, dtype=name, D=cp.total_dof, status=res.status.name,
               iterations=res.iterations, initial_cost=res.initial_cost,
@@ -1706,8 +1699,7 @@ def jit_full(phase, label, problem, make, dtype, gate, rtol=1e-10, landmark=Fals
               python_final_cost=ref.final_cost,
               rel_diff_to_python=abs(res.final_cost - ref.final_cost) / ref.final_cost,
               python_run_to_run_spread=spread, parity_rtol=rtol,
-              first_solve_seconds=first_s, capture_seconds=run.capture_seconds,
-              instantiate_seconds=run.instantiate_seconds,
+              first_solve_seconds=first_s,
               solve_seconds=seconds, seconds_per_lm_iteration=seconds / res.iterations,
               python_solve_seconds=python_s, speedup_over_python=python_s / seconds,
               graphs=first_n["graphs"], parent_launches=n["launches"], replays=n["replays"],
@@ -2372,12 +2364,11 @@ def camera_solve(phase, label, problem, n_obs, solver, dtype, rtol):
                 rel_diff_to_python=abs(res.final_cost - ref.final_cost) / ref.final_cost,
                 python_run_to_run_spread=spread, parity_rtol=rtol, rmse_initial=r0,
                 rmse_final=r1, compile_seconds=compile_s, first_solve_seconds=first_s,
-                capture_seconds=jit._jit_cache[cp].capture_seconds, solve_seconds=seconds,
+                solve_seconds=seconds,
                 seconds_per_lm_iteration=seconds / res.iterations,
                 python_solve_seconds=python_s,
                 python_seconds_per_lm_iteration=python_s / ref.iterations,
                 speedup_over_python=python_s / seconds,
-                instantiate_seconds=jit._jit_cache[cp].instantiate_seconds,
                 host_reads=n["host_reads"],
                 host_reads_per_lm_iteration=n["host_reads"] / res.iterations,
                 graph_device_seconds=span_device, graph_span_wall_seconds=span_wall,
@@ -3794,10 +3785,8 @@ def scale_run(rung, built, mode, runs, ba, span=False):
             raise AssertionError(f"python mode: {launches} kernel launches for {iterations} "
                                  "LM iterations")
     else:
-        run = solved.solver._jit_cache[built.cp]
         solves = 1 + (1 if runs else 0)
-        line.update(capture_seconds=run.capture_seconds,
-                    instantiate_seconds=run.instantiate_seconds, graphs=n["graphs"],
+        line.update(graphs=n["graphs"],
                     replays_per_lm_iteration=n["replays"] / iterations,
                     host_reads=n["host_reads"], solves=solves,
                     host_reads_per_lm_iteration=n["host_reads"] / iterations,
@@ -3942,8 +3931,7 @@ def scale_fixed_iterations(built, iterations=5):
             if run != its:
                 raise AssertionError(f"venice python: {run} launches for {its} LM iterations")
         else:
-            out.update(trace, capture_seconds=lm._jit_cache[built.cp].capture_seconds,
-                       instantiate_seconds=lm._jit_cache[built.cp].instantiate_seconds,
+            out.update(trace,
                        host_reads=n["host_reads"],
                        host_reads_per_lm_iteration=n["host_reads"] / its,
                        host_read_bound=check_host_reads("venice fixed iterations", n, 2, its,
@@ -4160,11 +4148,13 @@ def main():
     # the camera path's kernel count, from 0, python and jit mode together
     lb.launches = 0
     graphs.reset_counters()
+    replayed0 = graphs.replayed["landmark_blocks"]
     t0 = time.perf_counter()
     launches_camera, iterations_camera = phase_camera_full()
     seconds["camera_full"] = time.perf_counter() - t0
-    if lb.launches + graphs.kernel_launches != launches_camera:
-        raise AssertionError(f"camera_full: {lb.launches} + {graphs.kernel_launches} kernel "
+    if lb.launches + graphs.replayed["landmark_blocks"] - replayed0 != launches_camera:
+        raise AssertionError(f"camera_full: {lb.launches} + "
+                             f"{graphs.replayed['landmark_blocks'] - replayed0} kernel "
                              f"launches counted, {launches_camera} summed over its solves")
     t0 = time.perf_counter()
     phase_lie_full()
@@ -4174,6 +4164,7 @@ def main():
     # resumed BA solves in this process, then the BA CLI's in its own
     lb.launches = 0
     graphs.reset_counters()
+    replayed0 = graphs.replayed["landmark_blocks"]
     with tempfile.TemporaryDirectory() as workdir:
         t0 = time.perf_counter()
         launches_support, iterations_support = phase_support_ba(ds, ba_problem, workdir)
@@ -4184,8 +4175,9 @@ def main():
         t0 = time.perf_counter()
         launches_cli, iterations_cli = phase_support_cli(ds, sphere_graph, workdir)
         seconds["support_cli"] = time.perf_counter() - t0
-    if lb.launches + graphs.kernel_launches != launches_support:
-        raise AssertionError(f"support: {lb.launches} + {graphs.kernel_launches} kernel "
+    if lb.launches + graphs.replayed["landmark_blocks"] - replayed0 != launches_support:
+        raise AssertionError(f"support: {lb.launches} + "
+                             f"{graphs.replayed['landmark_blocks'] - replayed0} kernel "
                              f"launches counted, {launches_support} summed over its solves")
     launches_support += launches_cli
     iterations_support += iterations_cli
@@ -4209,11 +4201,13 @@ def main():
     # the scale path's kernel count, from 0: python, jit and profiled solves
     lb.launches = 0
     graphs.reset_counters()
+    replayed0 = graphs.replayed["landmark_blocks"]
     t0 = time.perf_counter()
     launches_scale, iterations_scale = phase_scale(smi, host_cpu())
     seconds["scale"] = time.perf_counter() - t0
-    if lb.launches + graphs.kernel_launches != launches_scale:
-        raise AssertionError(f"scale: {lb.launches} + {graphs.kernel_launches} kernel "
+    if lb.launches + graphs.replayed["landmark_blocks"] - replayed0 != launches_scale:
+        raise AssertionError(f"scale: {lb.launches} + "
+                             f"{graphs.replayed['landmark_blocks'] - replayed0} kernel "
                              f"launches counted, {launches_scale} summed over its solves")
     emit(dict(phase="seconds", **seconds))
     # the SPD kernel's launches on the main path, before its own check

@@ -533,13 +533,14 @@ def test_jit_replays_the_landmark_kernel(card, solver):
     lm = _jit_solver("lm", mode="jit", linear_solver_type=solver, max_iterations=30)
     graphs.reset_counters()
     lb.launches = lb.captured = 0
+    replayed = graphs.replayed["landmark_blocks"]
     r1 = lm.optimize(cp)
     assert lb.captured == 1  # recorded once, in the step's first graph
     assert lb.launches == 1  # the warm-up's eager launch
-    assert graphs.kernel_launches == r1.iterations
+    assert graphs.replayed["landmark_blocks"] - replayed == r1.iterations
     r2 = lm.optimize(cp)
     assert graphs.captures == 1 and lb.captured == 1 and lb.launches == 1
-    assert graphs.kernel_launches == r1.iterations + r2.iterations
+    assert graphs.replayed["landmark_blocks"] - replayed == r1.iterations + r2.iterations
     assert (r1.iterations, r1.status) == (r2.iterations, r2.status)
     np.testing.assert_allclose(r2.final_cost, r1.final_cost, rtol=1e-10)
 
@@ -791,9 +792,11 @@ def test_selfcal_jit_captured_matches_cpu(card, model, solver):
     kw = dict(linear_solver_type=solver, max_iterations=40, pcg_tolerance=1e-10,
               pcg_forcing=False, pcg_max_iterations=500)
     graphs.reset_counters()
+    replayed = graphs.replayed["landmark_blocks"]
     rj = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(mode="jit", **kw)).optimize(
         problem.compile(dtype=torch.float64, device=card))
-    assert graphs.captures == 1 and graphs.kernel_launches >= rj.iterations
+    assert graphs.captures == 1
+    assert graphs.replayed["landmark_blocks"] - replayed >= rj.iterations
     rh = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(**kw)).optimize(
         problem.compile(dtype=torch.float64, device="cpu"))
     assert rj.converged and (rj.iterations, rj.status) == (rh.iterations, rh.status)
@@ -1005,11 +1008,172 @@ def test_venice_rung_reduced_on_the_card(card):
     before = lb.launches
     python = ladder.solve_venice(built, runs=1, mode="python")
     assert lb.launches - before == python.first_result.iterations + python.result.iterations
-    graphs.reset_counters()
+    replayed = graphs.replayed["landmark_blocks"]
     jit = ladder.solve_venice(built, runs=1, mode="jit")
-    assert graphs.kernel_launches >= jit.result.iterations
+    assert graphs.replayed["landmark_blocks"] - replayed >= jit.result.iterations
     ref, res = python.result, jit.result
     assert python.gate_passed and jit.gate_passed
     assert (res.iterations, res.status) == (ref.iterations, ref.status)
     spread = abs(ref.final_cost - python.first_result.final_cost) / ref.final_cost
     np.testing.assert_allclose(res.final_cost, ref.final_cost, rtol=max(1e-10, 10.0 * spread))
+
+
+# ---------------------------------------------------------------------------
+# the tracer (utils/profiling.py): phase stamps, launches on the host clock,
+# and work counted where it runs
+# ---------------------------------------------------------------------------
+
+
+def _graph_nodes(program):
+    """The node counts of a recorded program's captured graphs, in order,
+    bodies included."""
+    from apex_tpu_torch.optim import graphs
+
+    out = []
+    for item in program:
+        out += [item.nodes] if isinstance(item, graphs._Graph) else _graph_nodes(item.body)
+    return out
+
+
+def test_phase_stamps_sum_over_while_trips(card):
+    """A span around ``torch.cuda._sleep`` in the body of a WHILE node of 6
+    trips, captured with tracing on: its phase row counts 6 occurrences
+    and 6 sleeps within 5%, inside the launch's device interval (within
+    the anchor's uncertainty)."""
+    import time
+
+    from apex_tpu_torch.optim import graphs
+    from apex_tpu_torch.utils import profiling
+
+    cycles = 2_000_000
+    torch.cuda._sleep(cycles)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    sleep_ns = start.elapsed_time(end) * 1e6 / 10
+
+    def program(*state):
+        def trip(c):
+            with profiling.span("test.sleep"):
+                torch.cuda._sleep(cycles)
+            return (c + 1,)
+
+        return graphs.assign(state, graphs.while_update(lambda c: c < 6, trip, 8, *state))
+
+    profiling.set_tracing(True)
+    try:
+        state = (torch.zeros((), dtype=torch.int64, device=card),)
+        cap = graphs.Captured(program, state, torch.cuda.graph_pool_handle())
+        time.sleep(0.01)
+        profiling.reset_trace()
+        cap.zero_counts()
+        cap.launch()
+        trace = profiling.collect_trace()
+    finally:
+        profiling.set_tracing(False)
+    assert int(state[0]) == 6
+    phase, = [p for p in trace["phases"] if p["path"] == "test.sleep"]
+    assert phase["count"] == 6
+    assert phase["total_ns"] == pytest.approx(6 * sleep_ns, rel=0.05)
+    launch, = trace["launches"]
+    slack = 2 * trace["anchors"][card.index or 0]["uncertainty_ns"] + 20_000
+    assert launch["start_ns"] - slack <= phase["first_ns"] < phase["last_ns"]
+    assert phase["last_ns"] <= launch["end_ns"] + slack
+
+
+@pytest.mark.parametrize("name,solver", [("ba", "schur_implicit"),
+                                         ("sphere_excerpt.g2o", "sparse_cholesky")])
+def test_tracing_off_captures_the_same_nodes(card, name, solver, monkeypatch):
+    """Captured with tracing off, the jit programs hold the nodes of the
+    same programs with every span a no-op, and no device counter exists;
+    captured with tracing on they hold more (the stamps)."""
+    from apex_tpu_torch.optim import graphs
+    from apex_tpu_torch.utils import profiling
+
+    cp = _jit_problem(name).compile(dtype=torch.float64, device=card)
+
+    def nodes():
+        lm = _jit_solver("lm", mode="jit", linear_solver_type=solver, max_iterations=10)
+        lm.optimize(cp)
+        return _graph_nodes(lm._jit_cache[cp].captured.program)
+
+    assert not profiling.tracing()
+    accumulators = len(graphs.device_counts(card))
+    off = nodes()
+    assert len(graphs.device_counts(card)) == accumulators
+    with monkeypatch.context() as m:
+        m.setattr(profiling.span, "__enter__", lambda self: self)
+        m.setattr(profiling.span, "__exit__", lambda self, *exc: False)
+        bare = nodes()
+    profiling.set_tracing(True)
+    try:
+        on = nodes()
+    finally:
+        profiling.set_tracing(False)
+    assert off == bare
+    assert sum(on) > sum(off)
+
+
+def test_host_sleep_between_launches_is_idle_under_its_span(card):
+    """A host sleep between two launches of a small parent graph shows as
+    device-idle time under the span that wraps it."""
+    import time
+
+    from apex_tpu_torch.optim import graphs
+    from apex_tpu_torch.utils import profiling
+
+    def program(*state):
+        return graphs.assign(state, (state[0] * 2.0,))
+
+    profiling.set_tracing(True)
+    try:
+        state = (torch.ones(1024, dtype=torch.float64, device=card),)
+        cap = graphs.Captured(program, state, torch.cuda.graph_pool_handle())
+        profiling.reset_trace()
+        with profiling.span("test.outer"):
+            cap.launch()
+            with profiling.span("test.host"):
+                time.sleep(0.05)
+            cap.launch()
+        torch.cuda.synchronize()
+        idle = profiling.idle_by_span()
+    finally:
+        profiling.set_tracing(False)
+    assert 0.049 <= idle["test.host"] <= 0.06
+    assert idle.get("test.outer", 0.0) < 0.005
+
+
+@pytest.mark.parametrize("name,solver", [("ba", "schur_implicit"),
+                                         ("sphere_excerpt.g2o", "sparse_cholesky")])
+def test_jit_counts_python_modes_work_on_the_card(card, name, solver):
+    """A jit solve captured with tracing on counts, from its device counts,
+    the CR solves, refinements and retries and the PCG solves and live
+    iterations that python mode counts; the first solve (which warms up
+    and captures) counts one solve's work, as the second does."""
+    from apex_tpu_torch.linalg import banded, schur
+    from apex_tpu_torch.utils import profiling
+
+    work = ("cr_solves", "cr_refines", "cr_retries", "pcg_calls", "pcg_iterations")
+
+    def counted(lm):
+        before = [getattr(banded if k.startswith("cr") else schur, k) for k in work]
+        res = lm.optimize(cp)
+        after = [getattr(banded if k.startswith("cr") else schur, k) for k in work]
+        return res, [a - b for a, b in zip(after, before)]
+
+    cp = _jit_problem(name).compile(dtype=torch.float64, device=card)
+    kw = dict(linear_solver_type=solver, max_iterations=10, pcg_max_iterations=40)
+    rp, python = counted(_jit_solver("lm", mode="python", **kw))
+    profiling.set_tracing(True)
+    try:
+        jit = _jit_solver("lm", mode="jit", **kw)
+        first, first_counts = counted(jit)
+        again, again_counts = counted(jit)
+    finally:
+        profiling.set_tracing(False)
+    assert (first.iterations, first.status) == (rp.iterations, rp.status)
+    assert first_counts == again_counts == python
+    assert python[0] + python[3] == rp.iterations

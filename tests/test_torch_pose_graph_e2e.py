@@ -156,6 +156,24 @@ def test_cli_module_runs_with_profile():
     assert "cr.eliminate" in TRACE_PATH.read_text()
 
 
+def test_cli_profile_with_jit_writes_the_ports_trace(capsys):
+    """--profile with --jit writes the port's own Chrome trace
+    (``utils.profiling.export_chrome_trace``), not a torch.profiler trace:
+    the solve's host spans on one clock, and tracing is off again after."""
+    import json
+
+    from apex_tpu_torch.cli.pose_graph import TRACE_PATH, main
+    from apex_tpu_torch.utils import profiling
+
+    TRACE_PATH.unlink(missing_ok=True)
+    assert main(["--synthetic", "sphere", "--poses", "100", "--platform", "cpu",
+                 "--max-iterations", "3", "--jit", "--profile"]) == 0
+    assert "trace written" in capsys.readouterr().err
+    names = {e["name"] for e in json.loads(TRACE_PATH.read_text())["traceEvents"]}
+    assert {"lm.solve", "lm.read", "lm.result", "cr.eliminate"} <= names
+    assert not profiling.tracing()
+
+
 @pytest.mark.parametrize("argv,match", [
     # --jit runs every optimizer and solver (ROADMAP A.8b is done): these
     # three raised until then and now solve (match None)
