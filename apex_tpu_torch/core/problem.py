@@ -75,6 +75,9 @@ class FactorGroup:
     residual_dim: int = 0
     row_offset: int = 0
     count: int = 0
+    # the factor the group was compiled from (its template, or its first
+    # single block): what a kernel that takes the group reads its kind from
+    factor: Optional[Factor] = None
 
 
 class Problem:
@@ -450,6 +453,7 @@ class Problem:
                 residual_dim=d,
                 row_offset=row_offset,
                 count=count,
+                factor=template,
             ))
             row_offset += d * count
             all_host_cols.append(host_cols)

@@ -17,8 +17,13 @@ systems of a few thousand camera DOF. The global sparse H is never formed.
 Per factor group the linearization gives one merged camera-entity Jacobian
 ``Jc [K, d, De]`` (every camera slot of a factor lies in one entity), from
 which come batched ``H_cc`` entity blocks ``[E, De, De]``, landmark blocks
-``Hpp [P, 3, 3]`` and per-observation couplings ``W [K, De, 3]``; every sum
-over observations is one ``index_add_``. The landmark blocks are inverted by the CUDA kernel of
+``Hpp [P, 3, 3]`` and per-observation couplings ``W [K, De, 3]``. On a CUDA
+problem, a group of BAL projection rows (``kernels/schur_assemble.py``
+says which) is linearized and summed by the CUDA kernels of that module,
+from a camera-major and a landmark-major order of its rows built here once;
+every other group (and every group of a CPU problem) by
+``CompiledProblem.group_linearize``, each sum over observations one
+``index_add_``. The landmark blocks are inverted by the CUDA kernel of
 ``kernels/landmark_blocks.py`` for a CUDA tensor.
 
 LM damping is added to H_cc's diagonal and to the Hpp blocks, the latter
@@ -26,7 +31,8 @@ floored by ``pp_shift_floor`` (1e-4 in f32), in both variants.
 
 ``index_add_`` on CUDA sums with atomics in no fixed order, so results
 differ from the JAX package's sorted segment sums, and from run to run, by
-rounding.
+rounding; the assembly kernels sum in a fixed order, so an assemble of
+groups they take gives the same bits run to run.
 
 Damping and the LM iteration may be device tensors (jit mode). The
 explicit variant's retry ladder is ``graphs.ladder``; with ``sync_free``
@@ -47,7 +53,7 @@ import numpy as np
 import torch
 
 from ..core.problem import CompiledProblem
-from ..kernels import spd_inverse
+from ..kernels import schur_assemble, spd_inverse
 from ..kernels.landmark_blocks import invert_landmark_blocks
 from ..optim import graphs
 from ..utils.profiling import span
@@ -65,6 +71,10 @@ from .utils import bmv as _bmv
 pcg_calls = 0
 pcg_iterations = 0
 pcg_executed = 0
+# Factor rows linearized and summed by ``assemble``, and those of them the
+# assembly kernels took (``kernels/schur_assemble.py``), counted as above.
+assemble_rows = 0
+assemble_kernel_rows = 0
 
 
 def landmark_inverse(Hpp):
@@ -119,12 +129,17 @@ class _GroupPlan:
     ent: Optional[torch.Tensor]  # [K] camera-entity id per factor
     cam_cols: List[torch.Tensor]  # per cam slot, [K, ds] columns in Jc
     lm: Optional[torch.Tensor]  # [K] landmark id per factor
+    # the assembly kernels' plan of the group; None: the generic path
+    kernel: Optional[schur_assemble.KernelPlan] = None
 
 
 class SchurContext:
     """Elimination structure, assembly and the damped solve over a
     CompiledProblem. Landmark variables are those whose name starts with
-    ``eliminate_prefix`` and that live on a 3-DOF Euclidean manifold."""
+    ``eliminate_prefix`` and that live on a 3-DOF Euclidean manifold.
+    ``whole_groups=False`` is for a caller that assembles parts of the
+    groups (``parallel/schur_partitioned.py``): no assembly kernel plan is
+    built, and every group takes the generic path."""
 
     def __init__(
         self,
@@ -138,6 +153,7 @@ class SchurContext:
         pp_shift_floor: Optional[float] = None,
         pcg_q_tolerance: Optional[float] = None,
         sync_free: bool = False,
+        whole_groups: bool = True,
     ):
         if variant not in ("sparse", "iterative"):
             raise ValueError(f"unknown Schur variant {variant!r}; 'sparse' or 'iterative'")
@@ -297,11 +313,27 @@ class SchurContext:
         self._lm_cols3 = long(starts[:, None] + np.arange(3))
         self._lm_ids_of_cols = long(lm_id_arr[starts])
 
-        # --- pair enumeration of the explicit variant --------------------------
+        # --- the assembly kernels' plans (groups of a CUDA problem) ------------
         self._lm_host = [lm_id_arr[gcols(p.group_idx, p.lm_slot)] for p in self.couplings]
+        if dev.type == "cuda" and whole_groups:
+            for plan, lm in zip(self.couplings, self._lm_host):
+                plan.kernel = self._kernel_plan(plan, lm)
+
+        # --- pair enumeration of the explicit variant --------------------------
         self.pair_indices = None
         if variant == "sparse":
             self._enumerate_pairs()
+
+    def _kernel_plan(self, plan, lm):
+        """The assembly kernels' plan of a coupling group (``lm``: its rows'
+        landmark ids on the host), or None where they do not take it."""
+        De = self.entity_dof
+        cols = self.cp.host_group_cols[plan.group_idx]
+        red = [self.red_of_global[cols[s]] for s in plan.cam_slots]
+        ent = red[0] // De
+        return schur_assemble.plan_group(
+            self.cp.groups[plan.group_idx], plan.cam_slots, plan.lm_slot, ent,
+            [r - ent * De for r in red], lm, self.num_entities, plan.ent)
 
     def _enumerate_pairs(self):
         dev = self.cp.device
@@ -358,6 +390,13 @@ class SchurContext:
         Ws = []
         for plan in self.plans:
             g = self._group(plan.group_idx)
+            graphs.count(globals(), "assemble_rows", g.count)
+            if plan.kernel is not None:
+                graphs.count(globals(), "assemble_kernel_rows", g.count)
+                with span("schur.assemble_kernel"):
+                    Ws.append(schur_assemble.assemble_group(plan.kernel, g, values, Hcc, gc,
+                                                            Hpp, gp, cost))
+                continue
             r, jacs = cp.group_linearize(values, g, True)
             cost = cost + 0.5 * torch.sum(r * r)
             if plan.cam_slots:

@@ -90,7 +90,7 @@ import weakref
 import torch
 
 from ..kernels import graph_conditional as gc
-from ..kernels import landmark_blocks, spd_inverse
+from ..kernels import landmark_blocks, schur_assemble, spd_inverse
 from ..kernels.build import current_stream
 from ..utils import profiling
 
@@ -105,7 +105,8 @@ host_reads = 0
 status_reads = 0
 
 # the kernels whose launches a captured graph carries: {name: wrapper module}
-_KERNELS = {"landmark_blocks": landmark_blocks, "spd_clamped_inv": spd_inverse}
+_KERNELS = {"landmark_blocks": landmark_blocks, "spd_clamped_inv": spd_inverse,
+            "schur_assemble": schur_assemble}
 # their launches made by parent graphs and host replays, by name
 replayed = dict.fromkeys(_KERNELS, 0)
 launch_hook = None

@@ -126,6 +126,6 @@ def make_sharded_schur_step(
     ctx = SchurContext(
         cp, eliminate_prefix=eliminate_prefix, variant="iterative",
         preconditioner=preconditioner, pcg_max_iterations=pcg_max_iterations,
-        pcg_tolerance=pcg_tolerance, pcg_q_tolerance=pcg_q_tolerance)
+        pcg_tolerance=pcg_tolerance, pcg_q_tolerance=pcg_q_tolerance, whole_groups=False)
     make = make_partitioned_schur_step if is_uniform_layout(ctx) else make_block_schur_step
     return make(cp, ctx, mesh, damping_min=damping_min, damping_max=damping_max)

@@ -270,7 +270,10 @@ def trace_summary(cell, setup, trace, iterations, solves):
     if bundle:
         metrics.update(pcg_iters_per_lm_iter=work["pcg_iterations"] / iterations,
                        pcg_masked_share=100.0 * (work["pcg_executed"] - work["pcg_iterations"])
-                       / work["pcg_executed"])
+                       / work["pcg_executed"],
+                       # the share of the assembled rows the assembly kernels took
+                       assemble_kernel_row_share=100.0 * work["assemble_kernel_rows"]
+                       / max(work["assemble_rows"], 1))
     else:
         metrics["cr_extra_solves_share"] = (100.0 * (work["cr_refines"] + work["cr_retries"])
                                             / work["cr_solves"])

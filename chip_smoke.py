@@ -15,9 +15,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order,
 each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. build: compile the three CUDA sources of ``apex_tpu_torch/csrc`` (the
+2. build: compile the four CUDA sources of ``apex_tpu_torch/csrc`` (the
    landmark-block kernel, the SPD inverse kernel, the conditional graph
-   builder), one nvcc each, started together; the landmark kernel's launch
+   builder, the assembly kernels), one nvcc each, started together; the landmark kernel's launch
    configuration per dtype (tile, stages, residency, registers) and the SPD
    kernel's per block size; then capture_census: which library calls hold
    memory nodes in a CUDA graph capture (none of those jit mode puts in a
@@ -245,12 +245,19 @@ each printing one JSON line; any failure raises and exits non-zero:
 36. spd_inverse: the SPD inverse kernel against its plain version at every
     (B, n) the main path gave it, f32 and f64 (``SPD_RTOL``), timed beside
     the plain version and its ``torch.linalg.eigh``. After jit BA (phase
-    24), pcg_chunk holds ``graphs.PCG_CHUNK`` 1 against 4.
+    24), pcg_chunk holds ``graphs.PCG_CHUNK`` 1 against 4;
+37. schur_assemble: the assembly kernels at venice's six groups, f64 and
+    f32: the same bits twice, within ``ASSEMBLY_RTOL`` of the generic path
+    they replace (their plain version), and timed (each group and the
+    whole assemble) against their byte bound and the generic path (see
+    ``phase_schur_assemble``).
 
 The landmark-block kernel, the port of the one TPU kernel, runs on the BA
 paths only; the SPD inverse kernel (``spd_clamped_inv``, which the reference
-left to XLA) in both PCG preconditioners (implicit BA, ``pcg``). Then the
-kernels line (each kernel's launches on the main path, its time, bound and
+left to XLA) in both PCG preconditioners (implicit BA, ``pcg``); the
+assembly kernels (``schur_assemble``, the linearization and the Schur sums
+the reference left to XLA) in every BAL pinhole BA group of a CUDA problem.
+Then the kernels line (each kernel's launches on the main path, its time, bound and
 plain version's time), and last
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without one.
@@ -271,6 +278,9 @@ CALL_RUNS = 25  # single calls timed one by one (median)
 # rotations, cuSOLVER's syevj) agree to the dtype's rounding times the
 # conditioning of the eigenvectors, which spd_blocks keeps well separated
 SPD_RTOL = {"float64": 1e-10, "float32": 1e-3}
+# the assembly kernels against the generic path: each output's largest
+# error over its largest entry (tests/test_torch_cuda.py ASSEMBLY_RTOL)
+ASSEMBLY_RTOL = {"float64": 1e-12, "float32": 1e-3}
 # The kept spectrum of a block with a clamped eigenvalue, relative to its
 # largest kept 1/w: that inverse holds entries of 1/floor, each stored to
 # the dtype's rounding eps / floor, which is eps / rel_floor of the kept
@@ -304,8 +314,8 @@ def kernel_blocks(n, seed=0):
     return H
 
 
-def median_ms(fn, x):
-    """Median of CALL_RUNS single calls, each between two CUDA events: the
+def median_ms(fn, x, runs=CALL_RUNS):
+    """Median of ``runs`` single calls, each between two CUDA events: the
     host's work for the call and the kernel together."""
     import torch
 
@@ -313,7 +323,7 @@ def median_ms(fn, x):
         fn(x)
     torch.cuda.synchronize()
     times = []
-    for _ in range(CALL_RUNS):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -585,6 +595,138 @@ class SpdShapes(dict):
         self.module.spd_clamped_inv = self.wrapped
 
 
+def assembly_bound_us(ctx, plan, values):
+    """The least time one group's assembly could take on the card: the
+    bytes the function itself needs, each moved once at the HBM rate. Per
+    row the observation, the weight, the pool indices and W (written); the
+    pool rows the group reads; the free masks and constants once per
+    variable (a camera's per entity, a landmark's per landmark) and the
+    loss parameter once; H_pp and g_p per landmark, H_cc and g_c per entity
+    and the cost, written. The arithmetic, under 1,000 operations per row,
+    is far below it at the FP64 rate. Beside it, the bytes the kernels'
+    design moves on top of those: the masks, loss parameters and constant
+    intrinsics stored per row, each row's entity id, the camera-major and
+    landmark-major orders, the run and tile bounds and entity columns, the
+    record each row leaves for the entity pass (written and read), the
+    tiles' partial sums (written and read), and the reads of the blocks the
+    kernels add into. (microseconds, bytes, the design's extra bytes)"""
+    import torch
+
+    g, kp = ctx.cp.groups[plan.group_idx], plan.kernel
+    size = torch.finfo(ctx.cp.dtype).bits // 8
+    K, De = g.count, ctx.entity_dof
+    S, E, T = kp.seg_lm.shape[0], kp.fin_ent.shape[0], kp.tile_off.shape[0] - 1
+    pools = sum(int(torch.unique(idx).numel()) * values[pid].shape[1]
+                for pid, idx in zip(g.pool_ids, g.indices))
+    # the masks of the pose, landmark and intrinsics slots: per row as
+    # stored, per variable as the function needs them
+    masks = tuple(g.free_masks) + (None,) * (3 - len(g.free_masks))
+    per_row_masks = sum(m.shape[1] for m in masks if m is not None)
+    per_variable_masks = sum(n * m.shape[1] for n, m in zip((E, S, E), masks) if m is not None)
+    const = "const_intrinsics" in g.data
+    huber = g.loss_kind == "huber"
+    blocks = 12 * S + (De * De + De) * E + 1
+    floats = (K * (2 + (g.weights is not None) + 3 * De) + pools + per_variable_masks
+              + 3 * E * const + huber + blocks)
+    nbytes = floats * size + 8 * K * len(g.indices)
+    design_floats = (K * per_row_masks - per_variable_masks + (K - 1) * huber
+                     + 3 * (K - E) * const + 2 * K * (2 * kp.nc + 2) + 2 * T * kp.sums
+                     + blocks - 1)
+    design_ints = (8 * K + 4 * K * (1 + (kp.lm_perm is not None)) + 4 * (2 * S + 1)
+                   + 4 * (T + 1) + 4 * (2 * E + 1) + 4 * kp.ent_cols.numel())
+    return nbytes / HBM_BYTES_PER_S * 1e6, nbytes, design_floats * size + design_ints
+
+
+def phase_schur_assemble():
+    """Phase 37: the assembly kernels at venice's size and groups (the
+    ladder's venice rung: 1,778 cameras, 993,923 landmarks, six bucketed
+    groups of 640 to 3,934,024 rows), f64 and f32, at the initial values:
+    two assembles give the same bits, and every output is within
+    ``ASSEMBLY_RTOL`` of the generic path's (``group_linearize`` and
+    ``index_add_``, the port's plain version, which the kernels replace) on
+    the same card tensors; then the device time of each group's call
+    (TIMED_LAUNCHES, queued behind a sleep) and their sum over the
+    assemble's six, the byte bound (``assembly_bound_us``) and share, the
+    bytes of the kernels' design on top of the bound's, the host time per
+    call, and the single-call times of the kernels' assemble and of the
+    generic path's. Returns {dtype: line}."""
+    import torch
+
+    from apex_tpu_torch.ba import build_ba_problem
+    from apex_tpu_torch.benches import ladder
+    from apex_tpu_torch.io import synthetic
+    from apex_tpu_torch.kernels import schur_assemble as sa
+    from apex_tpu_torch.linalg.schur import SchurContext
+
+    problem = build_ba_problem(synthetic.synthetic_ba_large(
+        seed=0, **ladder.RUNGS["venice"].build.keywords))
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        cp = problem.compile(dtype=dtype, device="cuda")
+        ctx = SchurContext(cp)
+        if not all(p.kernel is not None for p in ctx.plans):
+            raise AssertionError(f"schur_assemble {name}: a venice group takes the generic path")
+        # the same structure on the generic path
+        generic = SchurContext(cp, whole_groups=False)
+        values = cp.initial_values()
+
+        def assembled(c):
+            o = c.assemble(values, 0.1)
+            return list(o[:4]) + [o[5]] + list(o[4])
+
+        got, again, want = assembled(ctx), assembled(ctx), assembled(generic)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        labels = ["Hcc", "gc", "Hpp", "gp", "cost"] + [f"W{i}" for i in range(len(got) - 5)]
+        errors = {k: float((a - b).abs().max() / b.abs().max())
+                  for k, a, b in zip(labels, got, want)}
+        worst = max(errors.values())
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        del got, again, want
+        if not (bitwise and finite and worst <= ASSEMBLY_RTOL[name]):
+            raise AssertionError(f"schur_assemble {name}: bitwise {bitwise}, finite {finite}, "
+                                 f"errors {errors} (gate {ASSEMBLY_RTOL[name]})")
+
+        E, De, P = ctx.num_entities, ctx.entity_dof, ctx.num_landmarks
+        bufs = [torch.zeros(shape, dtype=dtype, device="cuda")
+                for shape in ((E, De, De), (E, De), (P, 3, 3), (P, 3), ())]
+        groups, total_bound, total_bytes, total_design = [], 0.0, 0, 0
+        for plan in ctx.plans:
+            g = cp.groups[plan.group_idx]
+
+            def call(_, plan=plan, g=g):
+                sa.assemble_group(plan.kernel, g, values, *bufs)
+
+            device_us, host_us = device_and_host_us(call, [None])
+            bound, nbytes, design = assembly_bound_us(ctx, plan, values)
+            total_bound, total_bytes = total_bound + bound, total_bytes + nbytes
+            total_design += design
+            groups.append(dict(K=g.count, width=plan.kernel.width, runs=plan.kernel.seg_lm.shape[0],
+                               tiles=plan.kernel.tile_off.shape[0] - 1, device_us=device_us,
+                               bound_us=bound, bytes=nbytes, design_bytes=design,
+                               share=bound / device_us, host_us=host_us))
+
+        # the whole assemble's six calls: their sum (all six queued at once
+        # would exceed the launch queue behind the sleep)
+        device_us = sum(g["device_us"] for g in groups)
+        host_us = sum(g["host_us"] for g in groups)
+        line = dict(phase="schur_assemble", dtype=name, rows=sum(g.count for g in cp.groups),
+                    groups=groups, errors=errors, max_rel_err=worst, rtol=ASSEMBLY_RTOL[name],
+                    bitwise_twice=bitwise, device_us=device_us, bound_us=total_bound,
+                    bytes=total_bytes, bound_by="bytes", share=total_bound / device_us,
+                    design_bytes=total_design,
+                    design_bound_us=(total_bytes + total_design) / HBM_BYTES_PER_S * 1e6,
+                    host_us=host_us,
+                    call_ms=median_ms(lambda _: ctx.assemble(values, 0.1), None),
+                    generic_ms=median_ms(lambda _: generic.assemble(values, 0.1), None, runs=5))
+        emit(line)
+        out[name] = line
+        del ctx, generic, cp, values, bufs
+        release_cuda()
+    return out
+
+
 def capture_census(fn):
     """What one CUDA graph capture of ``fn()`` holds on the card
     (``graph_conditional.census``), ``fn`` warmed up twice first."""
@@ -675,7 +817,8 @@ def phase_small_parity():
 
 def phase_full_slice():
     """The implicit solve of the trafalgar-scale synthetic: (dataset,
-    problem, kernel launches, LM iterations, {dtype: final RMSE})."""
+    problem, kernel launches, LM iterations, {dtype: final RMSE}). The
+    assembly kernels run once per group and LM iteration."""
     import math
 
     import torch
@@ -700,7 +843,7 @@ def phase_full_slice():
         compile_s = time.perf_counter() - t0
         cfg = apx.LevenbergMarquardtConfig.for_bundle_adjustment()
         cfg.max_iterations = 10
-        before = lb.launches
+        before, counters = lb.launches, graph_counters()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -708,6 +851,10 @@ def phase_full_slice():
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launched = lb.launches - before
+        # every group is a BAL pinhole group: all take the assembly kernels
+        assembled = assembly_calls("full_slice", f"full_slice {dtype}",
+                                   {k: v - counters[k] for k, v in graph_counters().items()},
+                                   len(cp.groups), res.iterations)
         total += launched
         iterations += res.iterations
         r0 = rmse(res.initial_cost, ds.num_observations)
@@ -717,7 +864,8 @@ def phase_full_slice():
                   rows=cp.total_residual_dim, compile_seconds=compile_s,
                   solve_seconds=seconds, seconds_per_iteration=seconds / res.iterations,
                   max_memory_allocated=torch.cuda.max_memory_allocated(),
-                  rmse_initial=r0, rmse_final=r1, kernel_launches=launched))
+                  rmse_initial=r0, rmse_final=r1, kernel_launches=launched,
+                  assembly_kernel_calls=assembled))
         if not math.isfinite(res.final_cost):
             raise AssertionError(f"{dtype}: final cost not finite")
         if not r1 < 0.55 * r0:
@@ -1565,6 +1713,7 @@ def phase_jit_parity():
 
 def graph_counters():
     from apex_tpu_torch.kernels import landmark_blocks as lb
+    from apex_tpu_torch.kernels import schur_assemble as sa
     from apex_tpu_torch.kernels import spd_inverse as spd
     from apex_tpu_torch.optim import graphs
 
@@ -1574,7 +1723,29 @@ def graph_counters():
                 replayed_kernel_launches=graphs.replayed["landmark_blocks"],
                 eager_kernel_launches=lb.launches,
                 replayed_spd_launches=graphs.replayed["spd_clamped_inv"],
-                eager_spd_launches=spd.launches)
+                eager_spd_launches=spd.launches,
+                replayed_assemble_launches=graphs.replayed["schur_assemble"],
+                eager_assemble_launches=sa.launches)
+
+
+# the assembly kernels' calls checked on each main path, by path
+# (``assembly_calls``)
+ASSEMBLY_CALLS = {}
+
+
+def assembly_calls(path, label, n, groups, iterations, jit=False):
+    """The assembly kernels' calls in the counter increments ``n`` of
+    solves of ``iterations`` LM iterations on ``path``: one per group they
+    take (``groups``) and LM iteration, eager in python mode, replayed by
+    graphs in jit mode (the warm-up's eager calls aside). Adds the calls,
+    eager and replayed, to ``ASSEMBLY_CALLS[path]`` and returns them."""
+    key = "replayed_assemble_launches" if jit else "eager_assemble_launches"
+    if n[key] != groups * iterations:
+        raise AssertionError(f"{label}: {n[key]} assembly kernel calls ({key}) for {groups} "
+                             f"groups and {iterations} LM iterations")
+    calls = n["eager_assemble_launches"] + n["replayed_assemble_launches"]
+    ASSEMBLY_CALLS[path] = ASSEMBLY_CALLS.get(path, 0) + calls
+    return calls
 
 
 def host_loop_reason(jit, cp):
@@ -1653,7 +1824,8 @@ def jit_full(phase, label, problem, make, dtype, gate, rtol=1e-10, landmark=Fals
     spread where that is larger, and DogLeg python mode's reused steps;
     ``gate(res)`` raises on a result below the phase's quality gate. Each
     jit solve makes at most 2 host reads (``check_host_reads``); with
-    ``landmark`` each launches the landmark kernel once per LM iteration,
+    ``landmark`` (a BAL problem) each launches the landmark kernel once per
+    LM iteration, and the assembly kernels once per group and LM iteration,
     counted on the device. Returns a dict: the jit iterations of the three
     solves, the landmark kernel launches in them (by the device counts), the
     emitted line, the compiled problem and the python and jit solvers."""
@@ -1746,6 +1918,7 @@ def jit_full(phase, label, problem, make, dtype, gate, rtol=1e-10, landmark=Fals
             if c["replayed_kernel_launches"] != its:
                 raise AssertionError(f"{label} {name}: {c['replayed_kernel_launches']} "
                                      f"landmark launches on the device for {its} LM iterations")
+            assembly_calls(phase, f"{label} {name}", c, len(cp.groups), its, jit=True)
     iterations = first.iterations + res.iterations + spanned.iterations
     launches = sum(c["replayed_kernel_launches"] + c["eager_kernel_launches"]
                    for c in (first_n, n, span_n))
@@ -2297,7 +2470,8 @@ def camera_solve(phase, label, problem, n_obs, solver, dtype, rtol):
     mode's iterations and status and its final cost within ``rtol`` (or 10x
     python mode's spread). Every solve must bring the RMSE below 0.55x the
     initial, and the landmark kernel must run once per LM iteration (in jit
-    mode counted on the device). For ``schur`` a python-mode solve under
+    mode counted on the device); no group of these models takes the
+    assembly kernels. For ``schur`` a python-mode solve under
     the profiler (the camera spans' share of the device time); then a jit
     solve with CUDA events around its graph launches. Returns (kernel
     launches, LM iterations) over its solves."""
@@ -2353,6 +2527,10 @@ def camera_solve(phase, label, problem, n_obs, solver, dtype, rtol):
     span_n = {k: v - before[k] for k, v in graph_counters().items()}
     counts += [first_n, n, span_n]
     iterations += first.iterations + res.iterations + spanned.iterations
+    # no group of these camera models takes the assembly kernels
+    for c in counts:
+        assembly_calls(phase, f"{phase} {label} {solver} {name}", c, 0, 0)
+        assembly_calls(phase, f"{phase} {label} {solver} {name}", c, 0, 0, jit=True)
     rtol = max(rtol, 10.0 * spread)
     ctx = jit._jit_cache[cp]._step.solve_fn.schur_context
     r0, r1 = rmse(res.initial_cost, n_obs), rmse(res.final_cost, n_obs)
@@ -3748,8 +3926,9 @@ def release_cuda():
 def scale_run(rung, built, mode, runs, ba, span=False):
     """One dtype and mode of a scale rung through the ladder's solve
     function (the first solve timed apart, then ``runs`` timed solves):
-    (the ``Solved``, its line, kernel launches, LM iterations). python mode
-    counts the CR solves and retries and the PCG iterations; jit mode its graphs, host
+    (the ``Solved``, its line, kernel launches, LM iterations). A BA rung's
+    groups take the assembly kernels, once per LM iteration each. python
+    mode counts the CR solves and retries and the PCG iterations; jit mode its graphs, host
     reads and graph memory; ``span`` adds one solve with CUDA events around
     its graph launches (``graph_span_solve``)."""
     import torch
@@ -3778,7 +3957,10 @@ def scale_run(rung, built, mode, runs, ba, span=False):
         line.update(rmse_initial=ladder.rmse(res.initial_cost, built.data.num_observations),
                     rmse_final=ladder.rmse(res.final_cost, built.data.num_observations),
                     kernel_launches=launches,
-                    kernel_launches_per_lm_iteration=launches / iterations)
+                    kernel_launches_per_lm_iteration=launches / iterations,
+                    assembly_kernel_calls=assembly_calls(
+                        "scale", f"scale {built.cp.total_dof} DOF, {mode}", n,
+                        len(built.cp.groups), iterations, jit=mode == "jit"))
     if mode == "python":
         line.update(counts_line(counts, iterations))
         if ba and lb.launches - before["eager_kernel_launches"] != iterations:
@@ -3803,12 +3985,16 @@ def scale_run(rung, built, mode, runs, ba, span=False):
         if span:
             before = graph_counters()
             spanned, wall, device = graph_span_solve(lambda: solved.solver.optimize(built.cp))
-            s_launches = sum(graph_counters()[k] - before[k]
-                             for k in ("eager_kernel_launches", "replayed_kernel_launches"))
+            s_n = {k: v - before[k] for k, v in graph_counters().items()}
+            s_launches = s_n["eager_kernel_launches"] + s_n["replayed_kernel_launches"]
             launches += s_launches
             iterations += spanned.iterations
             line["span"] = dict(iterations=spanned.iterations, graph_device_seconds=device,
                                 graph_span_wall_seconds=wall, kernel_launches=s_launches,
+                                assembly_kernel_calls=assembly_calls(
+                                    "scale", f"scale {built.cp.total_dof} DOF, span", s_n,
+                                    len(built.cp.groups) if ba else 0, spanned.iterations,
+                                    jit=True),
                                 device_idle_share_outside_graphs=1.0 - device / wall)
             if ba and s_launches != spanned.iterations:
                 raise AssertionError(f"span: {s_launches} landmark launches on the device "
@@ -3856,7 +4042,8 @@ def scale_quality(name, solved):
 def scale_explicit(built):
     """dubrovnik through ``schur`` (explicit below 4096 camera DOF), once in
     f64 python mode with dubrovnik's config: RMSE below 0.60, one kernel
-    launch per LM iteration; (line, launches, iterations)."""
+    launch per LM iteration, the assembly kernels once per group and LM
+    iteration; (line, launches, iterations)."""
     import torch
 
     import apex_tpu_torch as apx
@@ -3869,15 +4056,17 @@ def scale_explicit(built):
     cfg.linear_solver_type = "schur"
     lm = apx.LevenbergMarquardt(cfg)
     before = lb.launches
-    res, seconds, _ = counted_solve(lm, built.cp)
+    res, seconds, n = counted_solve(lm, built.cp)
     launches = lb.launches - before
+    assembled = assembly_calls("scale", "dubrovnik schur", n, len(built.cp.groups),
+                               res.iterations)
     ctx = lm._step_cache[built.cp].solve_fn.schur_context
     r1 = ladder.rmse(res.final_cost, built.data.num_observations)
     line = dict(mode="python", solver="schur", variant=ctx.variant, Dc=ctx.Dc,
                 pairs=sum(int(ia.numel()) for ia, _ in ctx.pair_indices),
                 status=res.status.name, iterations=res.iterations, final_cost=res.final_cost,
                 rmse_final=r1, solve_seconds=seconds, kernel_launches=launches,
-                **peak_memory("dubrovnik schur"))
+                assembly_kernel_calls=assembled, **peak_memory("dubrovnik schur"))
     if ctx.variant != "sparse" or not r1 < 0.60 or launches != res.iterations:
         raise AssertionError(f"dubrovnik schur: {line}")
     return line, launches, res.iterations
@@ -3890,7 +4079,8 @@ def scale_fixed_iterations(built, iterations=5):
     more), then jit mode (its first solve under ``graph_memory_trace``, one
     more); peak allocated and reserved memory per mode. Gates: the cost
     falls below the 0.46 px gate, one kernel launch per LM iteration in
-    python mode, jit mode python mode's iterations, status and cost (rtol
+    python mode, the assembly kernels once per group and LM iteration, jit
+    mode python mode's iterations, status and cost (rtol
     1e-10 or 10x python mode's spread). (line, launches, LM iterations)"""
     import numpy as np
     import torch
@@ -3922,7 +4112,11 @@ def scale_fixed_iterations(built, iterations=5):
         out = dict(status=res.status.name, iterations=res.iterations,
                    final_cost=res.final_cost, rmse_final=ladder.rmse(res.final_cost, n_obs),
                    solve_seconds=seconds, seconds_per_lm_iteration=seconds / res.iterations,
-                   kernel_launches=run, **peak_memory(f"venice {iterations} iterations, {mode}"))
+                   kernel_launches=run,
+                   assembly_kernel_calls=assembly_calls(
+                       "scale", f"venice {iterations} iterations, {mode}", n,
+                       len(built.cp.groups), its, jit=mode == "jit"),
+                   **peak_memory(f"venice {iterations} iterations, {mode}"))
         if not (res.final_cost < res.initial_cost and out["rmse_final"] < 0.46):
             raise AssertionError(f"venice {iterations} iterations, {mode}: {out}")
         if mode == "python":
@@ -4075,16 +4269,17 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
 
     from apex_tpu_torch.kernels import graph_conditional as gc
+    from apex_tpu_torch.kernels import schur_assemble as sa
     from apex_tpu_torch.kernels import spd_inverse as spd
     from apex_tpu_torch.optim import graphs
 
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for job in [pool.submit(m.build) for m in (lb, spd, gc)]:
+    with ThreadPoolExecutor(4) as pool:
+        for job in [pool.submit(m.build) for m in (lb, spd, gc, sa)]:
             job.result()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              sources=[os.path.relpath(str(m.SOURCE), REPO) for m in (lb, spd, gc)],
+              sources=[os.path.relpath(str(m.SOURCE), REPO) for m in (lb, spd, gc, sa)],
               cuda_runtime_and_driver=gc.versions(),
               config={str(d).replace("torch.", ""): lb.launch_config(d)
                       for d in (torch.float32, torch.float64)},
@@ -4109,6 +4304,11 @@ def main():
     # and the shapes it was called at
     spd.launches = 0
     graphs.replayed["spd_clamped_inv"] = 0
+    # the assembly kernels' count, from 0 as well: the main path's calls,
+    # each path's own checked by ``assembly_calls``
+    sa.launches = 0
+    graphs.replayed["schur_assemble"] = 0
+    ASSEMBLY_CALLS.clear()
     spd_shapes = SpdShapes()
     phase_small_parity()
     ds, ba_problem, launches, iterations, implicit = phase_full_slice()
@@ -4216,6 +4416,16 @@ def main():
     if not spd_launches:
         raise AssertionError("spd_clamped_inv: no launch on the main path")
     spd_measured = phase_spd_inverse(spd_shapes)
+    # the assembly kernels' calls on the main path in this process, eager
+    # and replayed by graphs, before their own phase; the paths checked
+    # one by one hold part of them
+    sa_launches = sa.launches + graphs.replayed["schur_assemble"]
+    if not sa_launches or sum(ASSEMBLY_CALLS.values()) > sa_launches:
+        raise AssertionError(f"schur_assemble: {sa_launches} calls on the main path, by path "
+                             f"{ASSEMBLY_CALLS}")
+    t0 = time.perf_counter()
+    sa_measured = phase_schur_assemble()["float64"]
+    seconds_assemble = time.perf_counter() - t0
 
     main_shape = measured[(65_132, torch.float64)]
     # the SPD kernel's headline: its f64 shape called most on the main path
@@ -4287,6 +4497,31 @@ def main():
                                             "clamped_rel_err", "device_us", "bound_us",
                                             "share", "call_ms", "plain_ms", "eigh_ms")}
                    for m in spd_measured.values()],
+    }, {
+        "name": "schur_assemble",
+        "route": "cuda",
+        "source": "apex_tpu_torch/csrc/schur_assemble.cu",
+        # the reference leaves the linearization and the Schur sums to XLA
+        "replaces": "apex_tpu/linalg/schur.py (assembly), apex_tpu/core/problem.py "
+                    "(group linearization)",
+        "launches": sa_launches,
+        "launches_by_path": dict(ASSEMBLY_CALLS),
+        "max_rel_err": sa_measured["max_rel_err"],
+        "ms": sa_measured["device_us"] / 1e3,
+        # the generic path (group_linearize and index_add_) is its plain
+        # version: what the kernels replace
+        "plain_ms": sa_measured["generic_ms"],
+        "bound_ms": sa_measured["bound_us"] / 1e3,
+        "bound_by": sa_measured["bound_by"],
+        # no single PyTorch call computes it
+        "library_ms": None,
+        "device_us": sa_measured["device_us"],
+        "share": sa_measured["share"],
+        "design_bytes": sa_measured["design_bytes"],
+        "design_bound_ms": sa_measured["design_bound_us"] / 1e3,
+        "rows": sa_measured["rows"],
+        "dtype": "float64",
+        "phase_seconds": seconds_assemble,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

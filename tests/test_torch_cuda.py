@@ -10,6 +10,7 @@ import apex_tpu_torch as apx
 from apex_tpu_torch.ba import build_ba_problem
 from apex_tpu_torch.io import synthetic
 from apex_tpu_torch.kernels import landmark_blocks as lb
+from assembly_problems import assembly_scene, behind_a_camera, camera_major_problem
 from chip_smoke import (SELFCAL_MODELS, extended_chain, rosenbrock_problem, selfcal_problem,
                         selfcal_scene)
 
@@ -1177,3 +1178,150 @@ def test_jit_counts_python_modes_work_on_the_card(card, name, solver):
     assert (first.iterations, first.status) == (rp.iterations, rp.status)
     assert first_counts == again_counts == python
     assert python[0] + python[3] == rp.iterations
+
+
+# ---------------------------------------------------------------------------
+# the assembly kernels (kernels/schur_assemble.py, csrc/schur_assemble.cu)
+# ---------------------------------------------------------------------------
+
+# each output's largest error against the generic path's (group_linearize
+# and index_add_), relative to its largest entry: the kernels contract
+# multiply-adds and sum in another order (shuffles, tiles) than the generic
+# path's atomics, and the entries of W from the rotation Jacobian,
+# differences of products, lose the most (about 1e-13 in f64 and 5e-5 in
+# f32 at venice's size)
+ASSEMBLY_RTOL = {torch.float64: 1e-12, torch.float32: 1e-3}
+# the small problems: mode, loss, layout, first camera fixed
+_SMALL_CASES = [(mode, loss, layout, fixed)
+                for mode in ("self_calibration", "bundle_adjustment")
+                for loss in ("huber", "l2") for layout in ("bucketed", "flat", "camera_major")
+                for fixed in (True, False)]
+
+
+def _assembly_problems(size):
+    """The problems of a size, one at a time: ``small``, the scene of
+    ``assembly_problems`` in every case of ``_SMALL_CASES`` (four bucketed
+    groups with weight-0 padding, one flat group, or one group whose rows
+    come camera by camera, out of landmark order); ``venice``, the venice
+    rung's size and caps (1,778 cameras, 993,923 landmarks, 5.0M
+    observations)."""
+    from apex_tpu_torch.benches import ladder
+
+    if size == "venice":
+        ds = synthetic.synthetic_ba_large(seed=0, **ladder.RUNGS["venice"].build.keywords)
+        yield build_ba_problem(ds)
+        return
+    ds = assembly_scene()
+    for mode, loss, layout, fixed in _SMALL_CASES:
+        loss = apx.HuberLoss(1.0) if loss == "huber" else None
+        if layout == "camera_major":
+            yield camera_major_problem(ds, mode, loss, fixed)
+        else:
+            yield build_ba_problem(ds, mode=mode, loss=loss, layout=layout,
+                                   fix_first_camera=fixed)
+
+
+def _assembled(ctx, values):
+    out = ctx.assemble(values, 0.1)
+    return list(out[:4]) + [out[5]] + list(out[4])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("size", ["small", "venice"])
+def test_assembly_kernels_match_plain(card, size, dtype):
+    """Every group of the problems takes the kernels, one call each (the
+    rows of the camera-major layout through their landmark-major order);
+    two assembles give the same bits; and H_cc, g_c, H_pp, g_p, the cost
+    and each W equal the generic path's (the port's plain version: the
+    same context built with ``whole_groups=False``) on the same card
+    tensors within ``ASSEMBLY_RTOL`` of their largest entry. At the small
+    size the first row's landmark lies behind its camera, so that the ok
+    mask engages: its W is zero."""
+    from apex_tpu_torch.kernels import schur_assemble as sa
+    from apex_tpu_torch.linalg.schur import SchurContext
+
+    for problem in _assembly_problems(size):
+        cp = problem.compile(dtype=dtype, device=card)
+        ctx = SchurContext(cp)
+        assert all(p.kernel is not None for p in ctx.plans)
+        values = cp.initial_values()
+        if size == "small":
+            values = behind_a_camera(cp, values)
+        before = sa.launches
+        got = _assembled(ctx, values)
+        assert sa.launches - before == len(cp.groups)
+        again = _assembled(ctx, values)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        generic = SchurContext(cp, whole_groups=False)
+        assert all(p.kernel is None for p in generic.plans)
+        want = _assembled(generic, values)
+        assert sa.launches - before == 2 * len(cp.groups)
+        torch.cuda.synchronize()
+        if size == "small":
+            w0 = cp.groups[0].weights
+            assert (w0 is None or float(w0[0]) == 1.0) and not got[5][0].any()
+        for t, w in zip(got, want):
+            assert torch.isfinite(t).all()
+            err = float((t - w).abs().max() / w.abs().max())
+            assert err <= ASSEMBLY_RTOL[dtype], (size, dtype, err)
+        del ctx, generic, cp, got, again, want
+        torch.cuda.empty_cache()
+
+
+def test_jit_selfcal_ba_with_the_assembly_kernels(card):
+    """A small self-calibrating BA in jit mode against python mode: the
+    same iterations and status, final cost within rtol 1e-9. The assembly
+    kernels give the same bits run to run, but PCG's sums run by
+    index_add_ in atomic order, and on this problem python mode's own
+    final costs spread by up to 1.1e-10 (six solves on an H100); jit
+    mode's fall inside that spread. The second camera's x is fixed too, so
+    that the scale is held by more than the damping. Python mode calls the
+    kernels once per group and LM iteration; jit mode records each group's
+    call once, replays it once per LM iteration, and its warm-up calls
+    each once; the kernels take every row (``assemble_kernel_rows`` =
+    ``assemble_rows``)."""
+    from apex_tpu_torch.kernels import schur_assemble as sa
+    from apex_tpu_torch.linalg import schur
+    from apex_tpu_torch.optim import graphs
+
+    problem = build_ba_problem(assembly_scene())
+    problem.fix_variable("pose_0001", indices=[0])
+    cp = problem.compile(dtype=torch.float64, device=card)
+    n, K = len(cp.groups), sum(g.count for g in cp.groups)
+    kw = dict(linear_solver_type="schur_implicit", max_iterations=10, pcg_forcing=False,
+              pcg_tolerance=1e-10, pcg_max_iterations=200)
+
+    def counted(mode):
+        rows, kernel_rows = schur.assemble_rows, schur.assemble_kernel_rows
+        res = _jit_solver("lm", mode=mode, **kw).optimize(cp)
+        return res, schur.assemble_rows - rows, schur.assemble_kernel_rows - kernel_rows
+
+    before = sa.launches
+    rp, rows, kernel_rows = counted("python")
+    assert sa.launches - before == n * rp.iterations
+    assert rows == kernel_rows == K * rp.iterations
+    graphs.reset_counters()
+    sa.launches = sa.captured = 0
+    replayed = graphs.replayed["schur_assemble"]
+    rj, rows, kernel_rows = counted("jit")
+    assert sa.captured == n and sa.launches == n
+    assert graphs.replayed["schur_assemble"] - replayed == n * rj.iterations
+    assert rows == kernel_rows == K * rj.iterations
+    assert (rj.iterations, rj.status) == (rp.iterations, rp.status)
+    np.testing.assert_allclose(rj.final_cost, rp.final_cost, rtol=1e-9)
+
+
+def test_other_cameras_take_the_generic_assembly_on_the_card(card):
+    """A pinhole group and an extended camera's group (per-camera
+    intrinsics) assemble by the generic path on the card: no kernel call."""
+    from apex_tpu_torch.kernels import schur_assemble as sa
+    from apex_tpu_torch.linalg.schur import SchurContext
+
+    poses, pts = selfcal_scene()
+    for model in ("pinhole", "kannala_brandt"):
+        problem, _ = selfcal_problem(model, SELFCAL_MODELS[model], poses, pts, shared=False)
+        ctx = SchurContext(problem.compile(dtype=torch.float64, device=card))
+        assert ctx.couplings and all(p.kernel is None for p in ctx.plans)
+        before = sa.launches
+        ctx.assemble(ctx.cp.initial_values(), 0.1)
+        assert sa.launches == before
