@@ -6,7 +6,8 @@ traffic mix; the harness finds each by name:
 
 - ``benchmark/configs/<config>.json``: the deployment: ``problem``
   (``bundle_adjustment`` | ``pose_graph``), ``generator`` (a name in
-  ``generators.GENERATORS`` and its sizes), ``build`` (options of the
+  ``generators.GENERATORS`` or of a file ``benchmark/generators/<name>.py``,
+  and its sizes), ``build`` (options of the
   problem builder), ``solver`` (the optimizer's configuration fields, with
   ``mode`` and ``dtype``);
 - ``benchmark/traffic/<traffic>.json``: the parameters of the mix: the
@@ -14,11 +15,18 @@ traffic mix; the harness finds each by name:
   answers keep their variables for the comparison;
 - ``benchmark/loops/<loop>.py``: the loop a traffic file names:
   ``window(...)``, which sets up, drives the program for the window and
-  returns its answers, and ``compared(spec, data, seed)``, the problems
-  whose answers the reference checks;
+  returns its answers, ``compared(spec, data, seed)``, the problems
+  whose answers the reference checks, and optionally ``traced(...)``, the
+  traced pass that ``--trace 1`` runs after the window;
 - ``benchmark/limits/<cell>.json``: the limit of each number compared;
 - ``benchmark/metrics/<metric>.py``: a reader, ``read(record) -> float or
   None``, of each per-layer metric the cell reports.
+
+With ``--trace 1`` the window is the same as without, timed by CUDA events
+around each parent-graph launch; after it, the loop's traced pass records
+the program's own trace (spans, stamped device phases, work counters) for
+the readers that need it (``Record.trace``). Neither touches what the
+end-to-end metrics measure.
 """
 
 from __future__ import annotations
@@ -40,6 +48,12 @@ from . import compare, generators, program, reference
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "apex_tpu"}
 GIB = float(2 ** 30)
+# the traced pass: each of its two stretches lasts at least this long and
+# this many solves
+TRACE_SECONDS = 10.0
+TRACE_SOLVES = 3
+# entries of each list of the result's breakdown
+BREAKDOWN_ENTRIES = 10
 
 
 def load(root, workload):
@@ -62,7 +76,8 @@ def load(root, workload):
         "cell": cell,
         "config": json.loads((root / configs[cell["config"]]["file"]).read_text()),
         "traffic": traffic,
-        "loop": SimpleNamespace(window=loop.window, compared=loop.compared),
+        "loop": SimpleNamespace(window=loop.window, compared=loop.compared,
+                                traced=getattr(loop, "traced", None)),
         "limits": json.loads((bench / "limits" / f"{workload}.json").read_text()),
         "end_to_end": e2e,
         "per_layer": per_layer,
@@ -123,6 +138,10 @@ class Record:
         self.window_s = 0.0
         self.graph_s = None  # summed CUDA-event time of parent-graph launches
         self.graph_launches = 0
+        self.compiled = None  # the window's compiled problem, for the traced pass
+        # the traced pass: {"trace": the program's trace, "solves", "iterations",
+        # "setup": seconds of the capture solve's spans by name}
+        self.trace = None
 
     def time_kernel(self, fn, args, launches=200):
         """Device seconds per call of ``fn(*args)`` by CUDA events over
@@ -236,9 +255,11 @@ def judge(spec, cases, device, gate_answers):
     return compare.checks(values, limits)
 
 
-def run(spec, seed, seconds, trace, t_process, device=None, control=False, out=sys.stdout):
+def run(spec, seed, seconds, trace, t_process, device=None, control=False, out=sys.stdout,
+        trace_seconds=TRACE_SECONDS):
     """One run of the cell; prints the result line and returns the exit
-    code."""
+    code. ``trace_seconds``: the least length of each stretch of the traced
+    pass."""
     device = torch.device(device or "cuda")
     kind = spec["config"]["problem"]
     chips = spec["cell"]["chips"]
@@ -271,6 +292,9 @@ def run(spec, seed, seconds, trace, t_process, device=None, control=False, out=s
     peak = torch.cuda.max_memory_reserved(device) if device.type == "cuda" else 0
     if clock is not None:
         record.graph_s, record.graph_launches = clock.seconds(), len(clock.pairs)
+    if trace and spec["loop"].traced is not None:
+        spec["loop"].traced(opts, device, record, trace_seconds)
+    record.compiled = None
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -309,13 +333,27 @@ def run(spec, seed, seconds, trace, t_process, device=None, control=False, out=s
 
 
 def _breakdown(record):
-    """The harness's own view: the graph launches' device time, and where
-    the host held the card outside them."""
+    """The harness's own view of the window: the graph launches' device
+    time, and where the host held the card outside them; then, from the
+    traced pass, the device seconds of each top-level stamped phase and the
+    device's idle seconds by innermost host span, the largest first."""
     walls = sum(s["wall_s"] for s in record.solves)
     graph = record.graph_s or 0.0
-    return {"device_ops": [["parent CUDA graph launches (CUDA events)", graph]],
-            "idle_gaps": [["host, outside parent-graph launches, inside solves", walls - graph],
-                          ["host, between solves", record.window_s - walls]]}
+    ops = [["parent CUDA graph launches (CUDA events)", graph]]
+    gaps = [["host, outside parent-graph launches, inside solves", walls - graph],
+            ["host, between solves", record.window_s - walls]]
+    if record.trace is not None:
+        trace = record.trace["trace"]
+        phases = {}
+        for p in trace["phases"]:
+            if p["parent"] is None:
+                phases[p["path"]] = phases.get(p["path"], 0.0) + p["total_ns"] / 1e9
+        idle = program.idle_by_span(trace) or {}
+        for out, label, seconds in ((ops, "stamped", phases), (gaps, "idle in", idle)):
+            ranked = sorted(seconds.items(), key=lambda kv: -kv[1])
+            out += [[f"traced pass, {label} {name}", value]
+                    for name, value in ranked[:BREAKDOWN_ENTRIES - len(out)]]
+    return {"device_ops": ops, "idle_gaps": gaps}
 
 
 def _finite(x):

@@ -12,9 +12,17 @@ program through its own types and to the reference as they are:
 - pose graphs: ``vertices`` [N, 7] SE(3) storage, ``src``, ``dst`` [E]
   int64, ``measurements`` [E, 7]; the information matrix is 100 I for
   every edge.
+
+A generator not in ``GENERATORS`` is a file of its own,
+``benchmark/generators/<name>.py``, found by its name: it defines
+``generate(seed, **params)``, which returns one of these layouts, and
+``SMALL``, its parameters for a rehearsal on the CPU.
 """
 
 from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -125,8 +133,29 @@ GENERATORS = {
     "ba_large": ba_large,
     "pose_graph_3d": pose_graph_3d,
 }
+# the generators that are files of their own
+FILES = Path(__file__).resolve().parents[1] / "generators"
 # the scene and its noise in every run: the solver's own ladder's seed
 NOISE_SEED = 0
+
+
+def from_file(name):
+    """The generator file ``FILES/<name>.py`` as a module."""
+    path = FILES / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"unknown generator {name!r}: not one of {sorted(GENERATORS)} "
+                         f"and no file {path}")
+    spec = importlib.util.spec_from_file_location(f"benchmark_generators_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def draw(name, seed, params):
+    """The generator ``name``'s data for ``seed`` and ``params``."""
+    if name in GENERATORS:
+        return GENERATORS[name](seed=seed, **params)
+    return from_file(name).generate(seed=seed, **params)
 
 
 def make(spec, seed):
@@ -134,7 +163,7 @@ def make(spec, seed):
     noise of ``NOISE_SEED``, turned into a frame drawn from the run's seed
     (``rotate``), so that every run does the same work on different
     numbers."""
-    return rotate(GENERATORS[spec["name"]](seed=NOISE_SEED, **spec["params"]), seed)
+    return rotate(draw(spec["name"], NOISE_SEED, spec["params"]), seed)
 
 
 def rotate(data, seed):

@@ -87,3 +87,46 @@ def set_launch_hook(hook):
     from apex_tpu_torch.optim import graphs
 
     graphs.launch_hook = hook
+
+
+def _tracer():
+    """The program's tracer (``utils.profiling``), None where the program
+    has none with ``set_tracing``."""
+    try:
+        from apex_tpu_torch.utils import profiling
+    except ImportError:
+        return None
+    return profiling if hasattr(profiling, "set_tracing") else None
+
+
+def set_tracing(on):
+    """Switch the program's tracing on or off; True where it did, None on
+    a program without a tracer."""
+    tracer = _tracer()
+    if tracer is None:
+        return None
+    tracer.set_tracing(on)
+    return True
+
+
+def reset_trace():
+    """Forget what the tracer recorded (nothing without a tracer)."""
+    tracer = _tracer()
+    if tracer is not None:
+        tracer.reset_trace()
+
+
+def collect_trace():
+    """What the tracer recorded since the last reset: host spans,
+    parent-graph launches, stamped device phases, work counters, anchors
+    and what it dropped (``utils.profiling.collect_trace``); None without a
+    tracer."""
+    tracer = _tracer()
+    return None if tracer is None else tracer.collect_trace()
+
+
+def idle_by_span(trace):
+    """Seconds the device was idle by innermost host span over ``trace``
+    (``utils.profiling.idle_by_span``); None without a tracer."""
+    tracer = _tracer()
+    return None if tracer is None else tracer.idle_by_span(trace)

@@ -372,13 +372,21 @@ class PoseGraph:
         return H.view(D, D), g, 0.5 * torch.sum(r * r)
 
     def step(self, x, lam, it, prev, s: Settings):
-        H, g, cost = self._normal(x)
-        A = H + lam * torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
-        del H
+        # the damping added to the diagonal in place: off it x + lam 0 is x,
+        # so A is H + lam I to the bit; and L L^T solved by two triangular
+        # solves, the bits of cholesky_solve without its copy of L. The step
+        # holds two D x D matrices at its peak, A and L
+        A, g, cost = self._normal(x)
+        A.diagonal().add_(lam)
         L, info = torch.linalg.cholesky_ex(A)
+
+        def cho_solve(b):
+            y = torch.linalg.solve_triangular(L, b, upper=False)
+            return torch.linalg.solve_triangular(L.mT, y, upper=True)
+
         if int(info) == 0:
-            dx = torch.cholesky_solve(-g[:, None], L)
-            dx = dx + torch.cholesky_solve(-g[:, None] - A @ dx, L)  # one refinement
+            dx = cho_solve(-g[:, None])
+            dx = dx + cho_solve(-g[:, None] - A @ dx)  # one refinement
         else:  # not positive definite in this precision: LU
             dx = torch.linalg.solve(A, -g[:, None])
         dx = dx[:, 0]

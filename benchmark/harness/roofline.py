@@ -26,6 +26,22 @@ def spd_inverse_bytes(n_blocks, n, dtype) -> int:
     return 2 * n_blocks * n * n * itemsize(dtype)
 
 
+def schur_assemble_bytes(n_obs, n_cameras, n_points, dtype) -> int:
+    """The bytes one assembly of the implicit Schur blocks needs, for BAL
+    pinhole observations with self-calibration (camera blocks of 9: pose 6,
+    focal and two radial terms): per observation its two pixels, its
+    weight, its three pool indices (int64) and its coupling W [9, 3]
+    written; each variable read once (a camera's 7 pose and 3 intrinsic
+    values, a point's 3); the pose's 6 free-parameter flags once per camera
+    and the loss parameter once; written once, H_pp and g_p per point (12
+    values), H_cc and g_c per camera (90) and the cost. Observations, not
+    the program's padded rows, and no intermediate the program chooses to
+    store."""
+    floats = (n_obs * (2 + 1 + 27) + n_cameras * (7 + 3 + 6 + 90) + n_points * (3 + 12)
+              + 1 + 1)
+    return floats * itemsize(dtype) + n_obs * 3 * 8
+
+
 def share_of_bandwidth(device_kind, n_bytes, seconds):
     """The least time the bytes take at the card's HBM bandwidth over the
     measured time, in percent; None for a card with no entry."""

@@ -3,7 +3,7 @@
 import copy
 import time
 
-from harness import cell
+from harness import cell, generators
 
 ROOT = cell.Path(__file__).resolve().parents[2]
 SMALL = {
@@ -16,8 +16,14 @@ def spec(workload):
     """The cell's specification with its generator at a small size."""
     s = copy.deepcopy(cell.load(ROOT, workload))
     gen = s["config"]["generator"]
-    gen["params"] = SMALL[gen["name"]]
+    gen["params"] = small_params(gen["name"])
     return s
+
+
+def small_params(name):
+    """A generator's small size: ``SMALL`` here, or a generator file's
+    own ``SMALL``."""
+    return SMALL[name] if name in SMALL else generators.from_file(name).SMALL
 
 
 def workloads():
@@ -27,12 +33,13 @@ def workloads():
 
 
 def run(spec, seed=7, seconds=0.5, trace=0, control=False, device="cpu"):
-    """One run on ``device``; -> (exit code, parsed last line)."""
+    """One run on ``device``, the traced pass's stretches as long as the
+    window; -> (exit code, parsed last line)."""
     import io
     import json
 
     out = io.StringIO()
     rc = cell.run(spec, seed, seconds, trace, time.perf_counter(), device=device,
-                  control=control, out=out)
+                  control=control, out=out, trace_seconds=seconds)
     lines = out.getvalue().strip().splitlines()
     return rc, (json.loads(lines[-1]) if lines else None)
