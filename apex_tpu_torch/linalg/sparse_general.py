@@ -23,7 +23,7 @@ identity-pinned diagonals; a Cholesky that fails gives NaN and the 5-stage
 retry ladder reads ``isfinite(x)``, one read-back per attempt: a host read
 in python mode, a WHILE node over one captured elimination in a jit step
 (``graphs.while_update``). Spans named ``general.*`` mark the layers for
-``torch.profiler``.
+the tracer and ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -37,6 +37,17 @@ import torch
 from ..optim import graphs
 from ..utils.profiling import span
 from .banded import BASE_REG, _cholesky, cho_solve, damping_tensor, shift_ladder
+
+# Solves, retry-ladder attempts and dense core factorizations run since
+# import (or since a caller last set them to 0), and the columns of those
+# factorizations summed (a core's width is ``general_core_cols /
+# general_core_factors``), counted where they run (``graphs.count``): in
+# python mode as the code runs, in a captured jit solve from the device
+# counts of the graphs and WHILE trips that ran them; never in the warm-up.
+general_solves = 0
+general_retries = 0
+general_core_factors = 0
+general_core_cols = 0
 
 # ---------------------------------------------------------------------------
 # Host-side symbolic analysis
@@ -388,6 +399,8 @@ class GeneralSparseCholesky:
 
         x = B.new_zeros(nv + 1, d)
         if self.R:
+            graphs.count(globals(), "general_core_factors")
+            graphs.count(globals(), "general_core_cols", self.R * d)
             with span("general.core"):
                 R = self.R
                 A = B.new_zeros(R, d, R, d)
@@ -419,6 +432,7 @@ class GeneralSparseCholesky:
         stages at most, one read of ``isfinite(x)`` per attempt; its stages
         are counted on the device. ``damping`` may be a 0-d device tensor
         (jit mode)."""
+        graphs.count(globals(), "general_solves")
         dt = B.dtype
         f32 = dt == torch.float32
         damp = damping_tensor(damping, dt, B.device)
@@ -430,6 +444,7 @@ class GeneralSparseCholesky:
         x = self._solve_once(B, bv, damp + floor)
 
         def retry(reg):
+            graphs.count(globals(), "general_retries")
             with span("general.retry"):
                 return self._solve_once(B, bv, damp + reg)
 

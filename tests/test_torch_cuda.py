@@ -1180,6 +1180,38 @@ def test_jit_counts_python_modes_work_on_the_card(card, name, solver):
     assert python[0] + python[3] == rp.iterations
 
 
+def test_jit_general_counts_python_modes_work_on_the_card(card):
+    """The general tier's counters (``linalg.sparse_general.general_*``)
+    from a jit solve's device counts, tracing off as users run it, equal
+    python mode's on the 10^3 lattice (elimination levels and a dense
+    core): one tier solve and one core factorization of R*dmax columns per
+    LM iteration, the first solve (which warms up and captures) as the
+    second."""
+    from apex_tpu_torch.linalg import sparse_general as sg
+
+    work = ("general_solves", "general_retries", "general_core_factors", "general_core_cols")
+
+    def counted(lm):
+        before = [getattr(sg, k) for k in work]
+        res = lm.optimize(cp)
+        return res, [getattr(sg, k) - b for k, b in zip(work, before)]
+
+    cp = synthetic.synthetic_pose_graph_grid3d(10, 10, 10, seed=0).to_problem().compile(
+        dtype=torch.float64, device=card)
+    kw = dict(linear_solver_type="sparse_general", max_iterations=20, cost_tolerance=1e-4,
+              damping="auto")
+    python_lm = _jit_solver("lm", mode="python", **kw)
+    rp, python = counted(python_lm)
+    gs = python_lm._step_cache[cp].solve_fn.general_sparse
+    jit = _jit_solver("lm", mode="jit", **kw)
+    first, first_counts = counted(jit)
+    again, again_counts = counted(jit)
+    assert (first.iterations, first.status) == (rp.iterations, rp.status)
+    assert first_counts == again_counts == python
+    assert gs.sym.n_levels >= 1 and python[0] == rp.iterations
+    assert python[2] == python[0] + python[1] and python[3] == python[2] * gs.R * gs.dmax
+
+
 # ---------------------------------------------------------------------------
 # the assembly kernels (kernels/schur_assemble.py, csrc/schur_assemble.cu)
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 apex_tpu on the CPU in f64: the 3D-lattice generator, the symbolic
 elimination plans (array-equal), the block assembly, one solve against the
 dense one, the retry ladder, LM end to end with and without elimination
-levels, and sparse_cholesky's switch above a 1536-column bandwidth.
+levels, sparse_cholesky's switch above a 1536-column bandwidth, and the
+tier's work counters (solves, ladder attempts, dense core factorizations
+and their columns) counted where the work runs.
 
 A graph of at most ``base_cap`` = 512 blocks has no elimination level: the
 whole graph is the dense core. The tests that mean to run levels build with
@@ -27,7 +29,9 @@ from apex_tpu.io import synthetic as jax_synthetic
 from apex_tpu_torch.ba import build_ba_problem
 from apex_tpu_torch.convert import values_from_jax
 from apex_tpu_torch.io import synthetic
+from apex_tpu_torch.optim import graphs
 from test_torch_jit import one_thread  # noqa: F401 (autouse: one BLAS thread per module)
+from test_torch_tracing import _CpuRecorder
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures"
 # tests/test_medium_fixture.py: certified f64 optimum
@@ -35,6 +39,16 @@ MEDIUM_SE3 = ("medium_se3_250.g2o", 5.132992631561506e-01)
 CERTIFIED = dict(max_iterations=100, cost_tolerance=1e-10, parameter_tolerance=1e-14,
                  gradient_tolerance=1e-14)
 LM_SETTINGS = dict(max_iterations=30, cost_tolerance=1e-6)
+# the tier's work counters (module globals of linalg/sparse_general.py)
+WORK = ("general_solves", "general_retries", "general_core_factors", "general_core_cols")
+
+
+def _work():
+    return {name: getattr(sg, name) for name in WORK}
+
+
+def _work_since(before):
+    return {name: getattr(sg, name) - before[name] for name in WORK}
 
 
 def _with_base_cap(cls, base_cap):
@@ -167,10 +181,15 @@ def test_retry_ladder_recovers_singular_block():
         g.to_problem(fix_first=True) for g in _grid_pair((4, 3, 3), seed=2)))
     gs = sg.GeneralSparseCholesky(cp, base_cap=8)
     jgs = jax_sg.GeneralSparseCholesky(jcp, base_cap=8)
+    before = _work()
     dx, _, _ = gs.solve(values, None)
+    work = _work_since(before)
     jdx = np.asarray(jax.jit(lambda v: jgs.solve(v, None)[0])(jcp.initial_values()))
     assert bool(torch.isfinite(dx).all()) and gs.sym.n_levels >= 1
     assert gs.retry_stages >= 1
+    # one solve; a ladder attempt and a core factorization per stage run
+    assert work["general_solves"] == 1 and work["general_retries"] == gs.retry_stages
+    assert work["general_core_factors"] == 1 + gs.retry_stages
     np.testing.assert_allclose(dx.numpy(), jdx, rtol=1e-8, atol=1e-8 * np.abs(jdx).max())
 
 
@@ -301,3 +320,97 @@ def test_plan_tensors_on_the_problem_device():
     dx, _, _ = gs.solve(cp.initial_values(), 1e-3)
     assert dx.dtype == torch.float32 and dx.shape == (cp.total_dof,)
     assert bool(torch.isfinite(dx).all())
+
+
+def _lattice_lm(mode, fix_first=False):
+    """The 5x4x3 lattice through LM forced to ``sparse_general`` with
+    elimination levels (``base_cap=8``) in ``mode``: (result, the
+    solver's tier, the counters' change)."""
+    cp = _grid_pair((5, 4, 3))[0].to_problem(fix_first=fix_first).compile(
+        dtype=torch.float64, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sg, "GeneralSparseCholesky", _with_base_cap(sg.GeneralSparseCholesky, 8))
+        lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
+            mode=mode, linear_solver_type="sparse_general", **LM_SETTINGS))
+        before = _work()
+        result = lm.optimize(cp)
+        work = _work_since(before)
+    cache = lm._step_cache if mode == "python" else lm._jit_cache
+    gs, = {id(v): v for v in _general_tiers(cache)}.values()
+    return result, gs, work
+
+
+def _general_tiers(cache):
+    """The general tiers a solver's cache holds (python mode's step cache
+    or jit mode's run cache)."""
+    for entry in cache.values():
+        step = getattr(entry, "_step", entry)
+        yield step.solve_fn.general_sparse
+
+
+@pytest.mark.parametrize("mode", ["python", "jit"])
+def test_counters_count_where_the_work_runs(mode):
+    """One tier solve per LM iteration, each with one dense core
+    factorization of R*dmax columns and no ladder stage; jit mode on the
+    CPU (its step eager) counts what python mode counts."""
+    result, gs, work = _lattice_lm(mode)
+    assert result.converged and gs.sym.n_levels >= 1 and gs.R > 0
+    assert work["general_solves"] == result.iterations
+    assert work["general_retries"] == gs.retry_stages == 0
+    assert work["general_core_factors"] == result.iterations
+    assert work["general_core_cols"] == result.iterations * gs.R * gs.dmax
+    if mode == "jit":
+        assert work == _lattice_lm("python")[2]
+
+
+@pytest.mark.parametrize("case", ["grid-base8", "grid-no_levels", "mixed_dof_ba"])
+def test_core_width_from_the_counters_is_the_plans(case):
+    """``general_core_cols / general_core_factors`` is the plan's dense core
+    width R*dmax: lattice blocks of 6 with and without elimination levels,
+    and a bundle adjustment's blocks of 9 and 3 padded to 9."""
+    if case == "mixed_dof_ba":
+        cp = build_ba_problem(synthetic.synthetic_ba(n_cameras=4, n_points=25, seed=3),
+                              mode="self_calibration", layout="flat").compile(
+            dtype=torch.float64, device="cpu")
+        gs = sg.GeneralSparseCholesky(cp, deg_cap=64, base_cap=4)
+    else:
+        cp = synthetic.synthetic_pose_graph_grid3d(5, 4, 3).to_problem().compile(
+            dtype=torch.float64, device="cpu")
+        gs = sg.GeneralSparseCholesky(cp, base_cap=8 if case == "grid-base8" else 512)
+    values = cp.initial_values()
+    assert (gs.sym.n_levels > 0) == (case != "grid-no_levels") and gs.R > 0
+    before = _work()
+    for damping in (1e-3, 1e-2):
+        gs.solve(values, damping)
+    work = _work_since(before)
+    assert work["general_solves"] == work["general_core_factors"] == 2
+    assert work["general_core_cols"] / work["general_core_factors"] == gs.R * gs.dmax
+
+
+def test_recorded_counts_follow_the_device_counts():
+    """A recorded tier solve adds nothing at capture: the solve and its
+    first core factorization sit in the step's graph, each ladder attempt
+    and its core factorization in the ladder's WHILE trip, and the tally
+    adds them per launch and per trip. The warm-up form counts nothing."""
+    cp, _, values = _compiled_pair(tuple(
+        g.to_problem(fix_first=True) for g in _grid_pair((4, 3, 3), seed=2)))
+    gs = sg.GeneralSparseCholesky(cp, base_cap=8)
+    B, gv, _ = gs.assemble(values)
+
+    def program(x):
+        return graphs.assign((x,), (gs.solve_blocks(B, gv, None),))
+
+    state = (torch.zeros(cp.total_dof, dtype=torch.float64),)
+    before = _work()
+    with graphs.warmup_mode():
+        program(*state)
+    tree = graphs.record(program, state, _CpuRecorder())
+    assert _work_since(before) == dict.fromkeys(WORK, 0)
+    loop, = [item for item in tree if isinstance(item, graphs._Loop)]
+    loop.slot = 0
+    # three launches, the ladder's trips 1, 1 and 2
+    graphs._tally(tree, 3, [[4, 0]])
+    cols = gs.R * gs.dmax
+    assert _work_since(before) == {"general_solves": 3, "general_retries": 4,
+                                   "general_core_factors": 3 + 4,
+                                   "general_core_cols": (3 + 4) * cols}
