@@ -13,10 +13,12 @@ plain version: the tests hold them to it. The JAX package leaves this to
 XLA; no TPU kernel is replaced.
 
 ``plan_group`` builds a group's plan once, on the host (``SchurContext``
-does, for the groups of a CUDA problem that ``takes`` accepts): its rows in
-landmark-major runs and in camera-major tiles, and each entity's column
-offsets. ``assemble_group`` launches the kernels for CUDA tensors, f32 or
-f64, and counts each call in ``launches`` (three kernels, one launch here);
+does, for the groups of a CUDA problem that ``takes`` accepts) from the
+group's row orders (landmark-major runs and camera-major tiles,
+``kernels/schur_apply.py``'s ``RowOrders``, which the coupling kernels walk
+too): each entity's column offsets. ``assemble_group`` launches the
+kernels for CUDA tensors, f32 or f64, and counts each call in
+``launches`` (three kernels, one launch here);
 under CUDA graph capture it counts in ``captured`` instead, and
 ``optim/graphs.py`` counts the replayed calls. The kernels are built with
 ``nvcc`` into ``build/apex_tpu_torch/`` at first use and bound with
@@ -34,10 +36,9 @@ import torch
 
 from ..factors.projection import ProjectionFactor
 from . import build as _build
+from .schur_apply import RowOrders
 
 SOURCE = _build.CSRC / "schur_assemble.cu"
-# rows of one entity per CTA of the entity pass (csrc/schur_assemble.cu)
-TILE_ROWS = 1024
 # camera slots of the optimize modes the kernel takes; the landmark is slot 1
 _MODES = {("pose", "landmark"): (0,), ("pose", "landmark", "intrinsics"): (0, 2)}
 
@@ -68,14 +69,7 @@ class KernelPlan:
     nc: int  # camera columns per row: 9 (pose, intrinsics) or 6 (pose)
     ent: torch.Tensor  # [K] camera entity of each row
     ent_cols: torch.Tensor  # [E, 2] entity-local first column of the pose, the intrinsics
-    lm_perm: Optional[torch.Tensor]  # [K] landmark-major order; None: the rows' own
-    seg_lm: torch.Tensor  # [S] landmark of each run
-    seg_off: torch.Tensor  # [S + 1] run bounds in landmark-major order
-    width: int  # lanes per run: a power of two, the longest run's up to 32
-    cam_perm: torch.Tensor  # [K] camera-major order
-    tile_off: torch.Tensor  # [T + 1] tile bounds in camera-major order
-    fin_ent: torch.Tensor  # [Eg] the entities with rows in the group
-    fin_off: torch.Tensor  # [Eg + 1] their tiles
+    orders: RowOrders  # the group's landmark-major runs and camera-major tiles
 
     @property
     def sums(self) -> int:
@@ -110,48 +104,23 @@ def takes(group, cam_slots, lm_slot) -> bool:
             and group.data["obs"].dtype in (torch.float32, torch.float64))
 
 
-def _ragged_arange(lengths):
-    return np.arange(int(lengths.sum())) - np.repeat(np.cumsum(lengths) - lengths, lengths)
-
-
-def plan_group(group, cam_slots, lm_slot, ent, locs, lm, num_entities,
-               ent_t) -> Optional[KernelPlan]:
+def plan_group(group, cam_slots, lm_slot, ent, locs, orders: Optional[RowOrders],
+               num_entities, ent_t) -> Optional[KernelPlan]:
     """The plan of one coupling group from host arrays: ``ent`` [K] each
     row's camera entity, ``locs`` each camera slot's entity-local column
-    per row, ``lm`` [K] each row's landmark; ``ent_t`` is ``ent`` on the
-    device. None where the kernels do not take the group, or where a camera
-    slot's column differs between rows of one entity."""
-    K = group.count
-    if not 0 < K < 2 ** 31 or not takes(group, cam_slots, lm_slot):
+    per row; ``orders`` the group's row orders (``schur_apply.plan_orders``,
+    None: the group has none); ``ent_t`` is ``ent`` on the device. None
+    where the kernels do not take the group, or where a camera slot's
+    column differs between rows of one entity."""
+    if orders is None or not takes(group, cam_slots, lm_slot):
         return None
     ent_cols = np.full((num_entities, 2), -1, dtype=np.int32)
     for j, loc in enumerate(locs):
         ent_cols[ent, j] = loc
         if not np.array_equal(ent_cols[ent, j], loc):
             return None
-    lm_perm = None
-    if np.any(np.diff(lm) < 0):
-        lm_perm = np.argsort(lm, kind="stable")
-        lm = lm[lm_perm]
-    starts = np.flatnonzero(np.r_[True, lm[1:] != lm[:-1]])
-    seg_off = np.r_[starts, K]
-    width = min(32, 1 << (int(np.diff(seg_off).max()) - 1).bit_length())
-
-    counts = np.bincount(ent, minlength=num_entities)
-    present = np.flatnonzero(counts)
-    n_tiles = -(-counts[present] // TILE_ROWS)
-    first = (np.cumsum(counts) - counts)[present]
-    tile_start = np.repeat(first, n_tiles) + TILE_ROWS * _ragged_arange(n_tiles)
-
-    def dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=ent_t.device)
-
-    return KernelPlan(
-        nc=3 * len(locs) + 3, ent=ent_t, ent_cols=dev(ent_cols),
-        lm_perm=None if lm_perm is None else dev(lm_perm),
-        seg_lm=dev(lm[starts]), seg_off=dev(seg_off), width=width,
-        cam_perm=dev(np.argsort(ent, kind="stable")), tile_off=dev(np.r_[tile_start, K]),
-        fin_ent=dev(present), fin_off=dev(np.r_[0, np.cumsum(n_tiles)]))
+    return KernelPlan(nc=3 * len(locs) + 3, ent=ent_t,
+                      ent_cols=torch.as_tensor(ent_cols, device=ent_t.device), orders=orders)
 
 
 def _slot_inputs(kp, group, values):
@@ -195,16 +164,15 @@ def assemble_group(kp: KernelPlan, group, values, Hcc, gc, Hpp, gp, cost):
         raise ValueError(f"blocks H_cc {tuple(Hcc.shape)}, H_pp {tuple(Hpp.shape)}")
     W = torch.empty((K, De, 3), dtype=dt, device=dev)
     rec = torch.empty((K, 2 * kp.nc + 2), dtype=dt, device=dev)
-    n_tiles = kp.tile_off.shape[0] - 1
-    part = torch.empty((n_tiles, kp.sums), dtype=dt, device=dev)
+    o = kp.orders
+    part = torch.empty((o.tiles, kp.sums), dtype=dt, device=dev)
     ptr = {"pose_idx": group.indices[0], "point_idx": group.indices[1], "intr_idx": intr_idx,
-           "ent": kp.ent, "ent_cols": kp.ent_cols, "lm_perm": kp.lm_perm, "seg_lm": kp.seg_lm,
-           "seg_off": kp.seg_off, "cam_perm": kp.cam_perm, "tile_off": kp.tile_off,
-           "fin_ent": kp.fin_ent, "fin_off": kp.fin_off, "W": W, "rec": rec, "part": part}
+           "ent": kp.ent, "ent_cols": kp.ent_cols, "lm_perm": o.lm_perm, "seg_lm": o.seg_lm,
+           "seg_off": o.seg_off, "cam_perm": o.cam_perm, "tile_off": o.tile_off,
+           "fin_ent": o.fin_ent, "fin_off": o.fin_off, "W": W, "rec": rec, "part": part}
     ptr.update((name, t) for name, (t, _) in floats.items())
     args = _Args(**{name: None if t is None else t.data_ptr() for name, t in ptr.items()},
-                 S=kp.seg_lm.shape[0], width=kp.width, T=n_tiles,
-                 Eg=kp.fin_ent.shape[0], De=De)
+                 S=o.seg_lm.shape[0], width=o.width, T=o.tiles, Eg=o.fin_ent.shape[0], De=De)
     fn = (_fns or build())[dt]
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     err = fn(ctypes.byref(args), kp.nc, index, _build.current_stream(index))

@@ -20,19 +20,26 @@ which come batched ``H_cc`` entity blocks ``[E, De, De]``, landmark blocks
 ``Hpp [P, 3, 3]`` and per-observation couplings ``W [K, De, 3]``. On a CUDA
 problem, a group of BAL projection rows (``kernels/schur_assemble.py``
 says which) is linearized and summed by the CUDA kernels of that module,
-from a camera-major and a landmark-major order of its rows built here once;
+from a camera-major and a landmark-major order of its rows built here once
+for every coupling group (``kernels/schur_apply.py``'s ``RowOrders``);
 every other group (and every group of a CPU problem) by
 ``CompiledProblem.group_linearize``, each sum over observations one
-``index_add_``. The landmark blocks are inverted by the CUDA kernel of
-``kernels/landmark_blocks.py`` for a CUDA tensor.
+``index_add_``. The sums over the couplings W of the solve (``W^T x``,
+``W u``, the Schur-Jacobi blocks) are taken by the CUDA kernels of
+``kernels/schur_apply.py`` over the same orders, for every coupling group
+that has them at an entity width the kernels are built for; else (the CPU,
+other widths, a sharded context's rank plans) by a gather, a batched
+product and an ``index_add_``, their plain version. The landmark blocks
+are inverted by the CUDA kernel of ``kernels/landmark_blocks.py`` for a
+CUDA tensor.
 
 LM damping is added to H_cc's diagonal and to the Hpp blocks, the latter
 floored by ``pp_shift_floor`` (1e-4 in f32), in both variants.
 
 ``index_add_`` on CUDA sums with atomics in no fixed order, so results
 differ from the JAX package's sorted segment sums, and from run to run, by
-rounding; the assembly kernels sum in a fixed order, so an assemble of
-groups they take gives the same bits run to run.
+rounding; the assembly and coupling kernels sum in a fixed order, so a
+solve whose groups they all take gives the same bits run to run.
 
 Damping and the LM iteration may be device tensors (jit mode). The
 explicit variant's retry ladder is ``graphs.ladder``; with ``sync_free``
@@ -53,7 +60,7 @@ import numpy as np
 import torch
 
 from ..core.problem import CompiledProblem
-from ..kernels import schur_assemble, spd_inverse
+from ..kernels import schur_apply, schur_assemble, spd_inverse
 from ..kernels.landmark_blocks import invert_landmark_blocks
 from ..optim import graphs
 from ..utils.profiling import span
@@ -75,6 +82,12 @@ pcg_executed = 0
 # assembly kernels took (``kernels/schur_assemble.py``), counted as above.
 assemble_rows = 0
 assemble_kernel_rows = 0
+# Coupling rows read by the sums over W (``W^T x``, ``W u``, the
+# Schur-Jacobi blocks; each pass over a group counts its rows), and those of
+# them the coupling kernels took (``kernels/schur_apply.py``), counted as
+# above.
+coupling_rows = 0
+coupling_kernel_rows = 0
 
 
 def landmark_inverse(Hpp):
@@ -129,6 +142,9 @@ class _GroupPlan:
     ent: Optional[torch.Tensor]  # [K] camera-entity id per factor
     cam_cols: List[torch.Tensor]  # per cam slot, [K, ds] columns in Jc
     lm: Optional[torch.Tensor]  # [K] landmark id per factor
+    # the group's row orders (a coupling group of a CUDA problem); None: the
+    # coupling sums take the plain path
+    orders: Optional[schur_apply.RowOrders] = None
     # the assembly kernels' plan of the group; None: the generic path
     kernel: Optional[schur_assemble.KernelPlan] = None
 
@@ -138,8 +154,9 @@ class SchurContext:
     CompiledProblem. Landmark variables are those whose name starts with
     ``eliminate_prefix`` and that live on a 3-DOF Euclidean manifold.
     ``whole_groups=False`` is for a caller that assembles parts of the
-    groups (``parallel/schur_partitioned.py``): no assembly kernel plan is
-    built, and every group takes the generic path."""
+    groups (``parallel/schur_partitioned.py``): no row orders and no
+    assembly kernel plan are built, and every group takes the generic path
+    and the plain coupling sums."""
 
     def __init__(
         self,
@@ -313,27 +330,46 @@ class SchurContext:
         self._lm_cols3 = long(starts[:, None] + np.arange(3))
         self._lm_ids_of_cols = long(lm_id_arr[starts])
 
-        # --- the assembly kernels' plans (groups of a CUDA problem) ------------
+        # --- row orders and the assembly kernels' plans (a CUDA problem) -------
         self._lm_host = [lm_id_arr[gcols(p.group_idx, p.lm_slot)] for p in self.couplings]
+        # whether no landmark lies in two coupling groups: W^T x may then
+        # apply Hpp^-1 as each group's kernel writes its landmarks
+        self._disjoint_landmarks = False
         if dev.type == "cuda" and whole_groups:
+            groups_of = np.zeros(P, dtype=np.int64)
             for plan, lm in zip(self.couplings, self._lm_host):
-                plan.kernel = self._kernel_plan(plan, lm)
+                plan.orders = self._row_orders(plan, lm)
+                plan.kernel = self._kernel_plan(plan, plan.orders)
+                groups_of += np.bincount(lm, minlength=P) > 0
+            self._disjoint_landmarks = bool(groups_of.max(initial=0) <= 1)
 
         # --- pair enumeration of the explicit variant --------------------------
         self.pair_indices = None
         if variant == "sparse":
             self._enumerate_pairs()
 
-    def _kernel_plan(self, plan, lm):
-        """The assembly kernels' plan of a coupling group (``lm``: its rows'
-        landmark ids on the host), or None where they do not take it."""
+    def _entities(self, plan):
+        """A coupling group's rows on the host: each row's camera entity,
+        and each camera slot's entity-local first column per row."""
         De = self.entity_dof
         cols = self.cp.host_group_cols[plan.group_idx]
         red = [self.red_of_global[cols[s]] for s in plan.cam_slots]
         ent = red[0] // De
+        return ent, [r - ent * De for r in red]
+
+    def _row_orders(self, plan, lm):
+        """A coupling group's row orders (``lm``: its rows' landmark ids on
+        the host), or None for a group of no rows."""
+        return schur_apply.plan_orders(self._entities(plan)[0], lm, self.num_entities,
+                                       self.cp.device)
+
+    def _kernel_plan(self, plan, orders):
+        """The assembly kernels' plan of a coupling group with ``orders``,
+        or None where they do not take it."""
+        ent, locs = self._entities(plan)
         return schur_assemble.plan_group(
-            self.cp.groups[plan.group_idx], plan.cam_slots, plan.lm_slot, ent,
-            [r - ent * De for r in red], lm, self.num_entities, plan.ent)
+            self.cp.groups[plan.group_idx], plan.cam_slots, plan.lm_slot, ent, locs, orders,
+            self.num_entities, plan.ent)
 
     def _enumerate_pairs(self):
         dev = self.cp.device
@@ -425,29 +461,59 @@ class SchurContext:
     def _hcc_matvec(self, Hcc, x):
         return _bmv(Hcc, x.reshape(self.num_entities, self.entity_dof)).reshape(-1)
 
-    def _wt_x(self, Ws, xc):
-        """t_p = sum_k W_k^T xc[entity of k]: one gather and one index_add_
-        per coupling group."""
+    def _kernel_takes(self, plan):
+        """Whether the coupling kernels take the sums over a group's W."""
+        return plan.orders is not None and self.entity_dof in schur_apply.ENTITY_DOFS
+
+    def _count_coupling(self, Ws):
+        """One pass over every coupling group's rows in the work counters."""
+        graphs.count(globals(), "coupling_rows", sum(W.shape[0] for W in Ws))
+        graphs.count(globals(), "coupling_kernel_rows",
+                     sum(W.shape[0] for plan, W in zip(self.couplings, Ws)
+                         if self._kernel_takes(plan)))
+
+    def _wt_x(self, Ws, xc, Hpp_inv=None):
+        """t_p = sum_k W_k^T xc[entity of k]; with ``Hpp_inv``, u_p =
+        Hpp_inv[p] t_p. Per coupling group the kernels (fused with Hpp^-1
+        where they take every group and no landmark lies in two), else one
+        gather and one index_add_."""
+        self._count_coupling(Ws)
         xe = xc.reshape(self.num_entities, self.entity_dof)
         t = torch.zeros((self.num_landmarks, 3), dtype=xc.dtype, device=xc.device)
+        fused = (Hpp_inv is not None and self._disjoint_landmarks
+                 and all(map(self._kernel_takes, self.couplings)))
         for plan, W in zip(self.couplings, Ws):
-            t.index_add_(0, plan.lm, _bmv(W.transpose(1, 2), xe[plan.ent]))
-        return t
+            if self._kernel_takes(plan):
+                schur_apply.wt_x(plan.orders, W, xe, t, Hpp_inv if fused else None)
+            else:
+                t.index_add_(0, plan.lm, _bmv(W.transpose(1, 2), xe[plan.ent]))
+        return t if Hpp_inv is None or fused else _bmv(Hpp_inv, t)
 
     def _w_u(self, Ws, u):
-        """y = sum_k W_k u[landmark of k], landing on entity blocks."""
+        """y = sum_k W_k u[landmark of k], landing on entity blocks: per
+        coupling group the kernels, else one gather and one index_add_."""
+        self._count_coupling(Ws)
         y = torch.zeros((self.num_entities, self.entity_dof), dtype=u.dtype, device=u.device)
         for plan, W in zip(self.couplings, Ws):
-            y.index_add_(0, plan.ent, _bmv(W, u[plan.lm]))
+            if self._kernel_takes(plan):
+                schur_apply.w_u(plan.orders, W, u, y)
+            else:
+                y.index_add_(0, plan.ent, _bmv(W, u[plan.lm]))
         return self._allreduce(y.reshape(-1))
 
     def _schur_diagonal(self, Hcc, Hpp_inv, Ws):
         """The De x De entity diagonal blocks of S, pose<->intrinsics cross
-        terms through the landmark included: Hcc - sum_k W_k Hpp^-1 W_k^T."""
+        terms through the landmark included: Hcc - sum_k W_k Hpp^-1 W_k^T,
+        the sum per coupling group by the kernels, else by products of
+        gathered blocks and one index_add_."""
+        self._count_coupling(Ws)
         Z = torch.zeros_like(Hcc)
         for plan, W in zip(self.couplings, Ws):
-            Y = W @ Hpp_inv[plan.lm]  # [K, De, 3]
-            Z.index_add_(0, plan.ent, Y @ W.transpose(1, 2))
+            if self._kernel_takes(plan):
+                schur_apply.schur_diagonal(plan.orders, W, Hpp_inv, Z)
+            else:
+                Y = W @ Hpp_inv[plan.lm]  # [K, De, 3]
+                Z.index_add_(0, plan.ent, Y @ W.transpose(1, 2))
         return Hcc - self._allreduce(Z)
 
     def _entity_prec_inv(self, Hcc, Hpp_inv, Ws, schur_jacobi: bool):
@@ -615,7 +681,7 @@ class SchurContext:
     def _solve_reduced_pcg(self, Hcc, Hpp_inv, Ws, b, iteration, dx_prev):
         """The implicit variant's reduced solve: matrix-free S, PCG."""
         def apply_S(x):
-            u = _bmv(Hpp_inv, self._wt_x(Ws, x))
+            u = self._wt_x(Ws, x, Hpp_inv)
             return self._hcc_matvec(Hcc, x) - self._w_u(Ws, u)
 
         if self.preconditioner == "none":

@@ -90,7 +90,7 @@ import weakref
 import torch
 
 from ..kernels import graph_conditional as gc
-from ..kernels import landmark_blocks, schur_assemble, spd_inverse
+from ..kernels import landmark_blocks, schur_apply, schur_assemble, spd_inverse
 from ..kernels.build import current_stream
 from ..utils import profiling
 
@@ -106,7 +106,7 @@ status_reads = 0
 
 # the kernels whose launches a captured graph carries: {name: wrapper module}
 _KERNELS = {"landmark_blocks": landmark_blocks, "spd_clamped_inv": spd_inverse,
-            "schur_assemble": schur_assemble}
+            "schur_assemble": schur_assemble, "schur_apply": schur_apply}
 # their launches made by parent graphs and host replays, by name
 replayed = dict.fromkeys(_KERNELS, 0)
 launch_hook = None

@@ -118,9 +118,10 @@ class ShardedSchurContext(SchurContext):
     """A rank's view of a ``SchurContext``: its rows of every factor group
     (``_group``), ``_allreduce`` over the mesh and, where the landmarks are
     partitioned, the final landmark gather (``_scatter_global``). A rank
-    assembles its rows by the generic path: the assembly kernels' plans are
-    of whole groups (``make_sharded_schur_step`` builds ``ctx`` without
-    them, ``whole_groups=False``).
+    assembles its rows by the generic path and sums over its couplings by
+    the plain one: the assembly kernels' plans and the row orders are of
+    whole groups (``make_sharded_schur_step`` builds ``ctx`` without them,
+    ``whole_groups=False``).
 
     ``rows[i]`` is ``rank_rows_of``'s pair for plan i. ``lms[i]`` is the
     rank-local landmark id of each of those rows (a tensor), or None to
@@ -144,7 +145,7 @@ class ShardedSchurContext(SchurContext):
                 ent=None if plan.ent is None else plan.ent[take],
                 cam_cols=[cc[take] for cc in plan.cam_cols],
                 lm=None if plan.lm is None else (plan.lm[take] if lm is None else lm),
-                kernel=None))
+                orders=None, kernel=None))
         self.plans = plans
         self.couplings = [p for p in plans if p.cam_slots and p.lm_slot is not None]
         self._lm_slices = lm_slices

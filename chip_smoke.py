@@ -250,19 +250,27 @@ each printing one JSON line; any failure raises and exits non-zero:
     f32: the same bits twice, within ``ASSEMBLY_RTOL`` of the generic path
     they replace (their plain version), and timed (each group and the
     whole assemble) against their byte bound and the generic path (see
-    ``phase_schur_assemble``).
+    ``phase_schur_assemble``);
+38. schur_apply: the coupling kernels at venice's six groups, f64 and f32:
+    W^T x (alone and fused with Hpp^-1), W u, the Schur-Jacobi blocks and
+    one S-apply, each the same bits twice, within ``COUPLING_RTOL`` of the
+    plain path, and timed against its byte bound and the plain path (see
+    ``phase_schur_apply``).
 
 The landmark-block kernel, the port of the one TPU kernel, runs on the BA
 paths only; the SPD inverse kernel (``spd_clamped_inv``, which the reference
 left to XLA) in both PCG preconditioners (implicit BA, ``pcg``); the
 assembly kernels (``schur_assemble``, the linearization and the Schur sums
-the reference left to XLA) in every BAL pinhole BA group of a CUDA problem.
+the reference left to XLA) in every BAL pinhole BA group of a CUDA problem;
+the coupling kernels (``schur_apply``, the sums over W of the implicit Schur
+solve) in every coupling group of a CUDA problem at De = 9 or 6.
 Then the kernels line (each kernel's launches on the main path, its time, bound and
 plain version's time), and last
 ``{"ok": true, "device": {...}}``. It needs one card, and refuses to run
 without one.
 """
 
+import functools
 import json
 import os
 import statistics
@@ -287,6 +295,14 @@ ASSEMBLY_RTOL = {"float64": 1e-12, "float32": 1e-3}
 # scale (4 times that; the plain version's own error reaches 0.75 times)
 SPD_KEPT_RTOL = {"float64": 4 * 2.220446049250313e-16 / 1e-12,
                  "float32": 4 * 1.1920928955078125e-07 / 1e-6}
+# the coupling kernels against the plain path (gathers, batched products,
+# index_add_): each result's largest error over the largest entry of the
+# same sum taken over |W|, |x|, |u|, |Hpp^-1| (and |H_cc|). Each order of
+# summation rounds within (n + 9) units of the dtype's rounding of that
+# scale, n the rows of one sum: at venice at most 2,213 (an entity's rows
+# in one group), so the two within 2 x 2,222 units, 4.9e-13 in f64 and
+# 2.6e-4 in f32 (tests/test_torch_cuda.py COUPLING_RTOL, at its scenes' 150)
+COUPLING_RTOL = {"float64": 1e-12, "float32": 5e-4}
 SPD_PLAIN_BATCH = 16_384
 TIMED_LAUNCHES = 100  # back-to-back launches between two events
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -334,9 +350,10 @@ def median_ms(fn, x, runs=CALL_RUNS):
     return statistics.median(times)
 
 
-def device_and_host_us(fn, copies):
-    """(device us per launch, host us per call) of TIMED_LAUNCHES calls of
-    ``fn`` over ``copies`` in turn. The calls are queued behind a sleeping
+def device_and_host_us(fn, copies, calls=TIMED_LAUNCHES):
+    """(device us per launch, host us per call) of ``calls`` calls of
+    ``fn`` over ``copies`` in turn (a call of several launches: the calls'
+    launches together at most ~300). The calls are queued behind a sleeping
     kernel, so the card runs them back to back between the two events
     whatever the host's pace; the host clock around the same calls gives
     the host's time. The sleep doubles until the start event is still
@@ -353,15 +370,14 @@ def device_and_host_us(fn, copies):
         torch.cuda._sleep(cycles)
         start.record()
         t0 = time.perf_counter()
-        for i in range(TIMED_LAUNCHES):
+        for i in range(calls):
             fn(copies[i % len(copies)])
         host_s = time.perf_counter() - t0
         queued_in_time = not start.query()
         end.record()
         end.synchronize()
         if queued_in_time:
-            return (start.elapsed_time(end) * 1e3 / TIMED_LAUNCHES,
-                    host_s * 1e6 / TIMED_LAUNCHES)
+            return start.elapsed_time(end) * 1e3 / calls, host_s * 1e6 / calls
         cycles *= 2
 
 
@@ -615,7 +631,8 @@ def assembly_bound_us(ctx, plan, values):
     g, kp = ctx.cp.groups[plan.group_idx], plan.kernel
     size = torch.finfo(ctx.cp.dtype).bits // 8
     K, De = g.count, ctx.entity_dof
-    S, E, T = kp.seg_lm.shape[0], kp.fin_ent.shape[0], kp.tile_off.shape[0] - 1
+    o = kp.orders
+    S, E, T = o.seg_lm.shape[0], o.fin_ent.shape[0], o.tiles
     pools = sum(int(torch.unique(idx).numel()) * values[pid].shape[1]
                 for pid, idx in zip(g.pool_ids, g.indices))
     # the masks of the pose, landmark and intrinsics slots: per row as
@@ -632,7 +649,7 @@ def assembly_bound_us(ctx, plan, values):
     design_floats = (K * per_row_masks - per_variable_masks + (K - 1) * huber
                      + 3 * (K - E) * const + 2 * K * (2 * kp.nc + 2) + 2 * T * kp.sums
                      + blocks - 1)
-    design_ints = (8 * K + 4 * K * (1 + (kp.lm_perm is not None)) + 4 * (2 * S + 1)
+    design_ints = (8 * K + 4 * K * (1 + (o.lm_perm is not None)) + 4 * (2 * S + 1)
                    + 4 * (T + 1) + 4 * (2 * E + 1) + 4 * kp.ent_cols.numel())
     return nbytes / HBM_BYTES_PER_S * 1e6, nbytes, design_floats * size + design_ints
 
@@ -702,8 +719,9 @@ def phase_schur_assemble():
             bound, nbytes, design = assembly_bound_us(ctx, plan, values)
             total_bound, total_bytes = total_bound + bound, total_bytes + nbytes
             total_design += design
-            groups.append(dict(K=g.count, width=plan.kernel.width, runs=plan.kernel.seg_lm.shape[0],
-                               tiles=plan.kernel.tile_off.shape[0] - 1, device_us=device_us,
+            o = plan.kernel.orders
+            groups.append(dict(K=g.count, width=o.width, runs=o.seg_lm.shape[0],
+                               tiles=o.tiles, device_us=device_us,
                                bound_us=bound, bytes=nbytes, design_bytes=design,
                                share=bound / device_us, host_us=host_us))
 
@@ -723,6 +741,111 @@ def phase_schur_assemble():
         emit(line)
         out[name] = line
         del ctx, generic, cp, values, bufs
+        release_cuda()
+    return out
+
+
+def coupling_bytes(ctx, Ws, op):
+    """The bytes one coupling sum over every group needs, each moved once:
+    W (twice for an S-apply, whose two products each read it), each row's
+    entity and landmark as int32, the input vector or blocks, the output;
+    an S-apply also H_cc and x for its H_cc x and the vector u between its
+    two products, written and read. The arithmetic, 27 multiply-adds a row
+    (about 220 for the Schur-Jacobi blocks), is far below it at the FP64
+    rate."""
+    size = Ws[0].element_size()
+    E, De, P = ctx.num_entities, ctx.entity_dof, ctx.num_landmarks
+    w = sum(W.numel() for W in Ws) * size + 8 * sum(W.shape[0] for W in Ws)
+    x, u, hinv, blocks = E * De * size, P * 3 * size, P * 9 * size, E * De * De * size
+    return {"wt_x": w + x + u, "hinv_wt_x": w + x + hinv + u, "w_u": w + u + x,
+            "schur_diagonal": w + hinv + 2 * blocks,
+            "apply_S": 2 * w + hinv + blocks + 2 * x + 2 * u + x}[op]
+
+
+def phase_schur_apply():
+    """Phase 38: the coupling kernels at venice's size and groups (the
+    ladder's venice rung: six bucketed groups of 640 to 3,934,024 rows,
+    6,491,429 in all, De = 9), f64 and f32, on the couplings W and landmark
+    blocks of the initial values' assemble: W^T x (``wt_x``; fused with
+    Hpp^-1, ``hinv_wt_x``), W u, the Schur-Jacobi blocks and one S-apply
+    (H_cc x - W Hpp^-1 W^T x) with random x and u. Each through the kernels
+    twice (the same bits) and through the plain path (the same context
+    built with ``whole_groups=False``: gathers, batched products,
+    ``index_add_``), within ``COUPLING_RTOL``; then the device time of a
+    call over the six groups (calls queued behind a sleep), the byte bound
+    (``coupling_bytes``) and share, the host time per call and the plain
+    path's time. Returns {dtype: line}."""
+    import torch
+
+    from apex_tpu_torch.ba import build_ba_problem
+    from apex_tpu_torch.benches import ladder
+    from apex_tpu_torch.io import synthetic
+    from apex_tpu_torch.kernels import schur_apply as ap
+    from apex_tpu_torch.linalg.schur import SchurContext, landmark_inverse
+
+    problem = build_ba_problem(synthetic.synthetic_ba_large(
+        seed=0, **ladder.RUNGS["venice"].build.keywords))
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        cp = problem.compile(dtype=dtype, device="cuda")
+        ctx = SchurContext(cp)
+        if not (all(map(ctx._kernel_takes, ctx.couplings)) and ctx._disjoint_landmarks):
+            raise AssertionError(f"schur_apply {name}: a venice group takes the plain path")
+        plain = SchurContext(cp, whole_groups=False)
+        Hcc, _, Hpp, _, Ws, _ = ctx.assemble(cp.initial_values(), 0.1)
+        Hinv = landmark_inverse(Hpp)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(ctx.Dc, dtype=dtype, device="cuda", generator=gen)
+        u = torch.randn((ctx.num_landmarks, 3), dtype=dtype, device="cuda", generator=gen)
+
+        absW, zero = [W.abs() for W in Ws], torch.zeros_like(Hcc)
+        # each result of a context, and its rounding scale: the same sum
+        # over absolute values
+        sums = {"wt_x": (lambda c: c._wt_x(Ws, x), lambda: plain._wt_x(absW, x.abs())),
+                "hinv_wt_x": (lambda c: c._wt_x(Ws, x, Hinv),
+                              lambda: plain._wt_x(absW, x.abs(), Hinv.abs())),
+                "w_u": (lambda c: c._w_u(Ws, u), lambda: plain._w_u(absW, u.abs())),
+                "schur_diagonal": (lambda c: c._schur_diagonal(Hcc, Hinv, Ws),
+                                   lambda: Hcc.abs() - plain._schur_diagonal(
+                                       zero, Hinv.abs(), absW)),
+                "apply_S": (lambda c: c._hcc_matvec(Hcc, x) - c._w_u(Ws, c._wt_x(Ws, x, Hinv)),
+                            lambda: plain._hcc_matvec(Hcc.abs(), x.abs()) + plain._w_u(
+                                absW, plain._wt_x(absW, x.abs(), Hinv.abs())))}
+        ops_line = {}
+        for op, (of, scale) in sums.items():
+            fn = functools.partial(of, ctx)
+            got, again, want, ref = fn(), fn(), of(plain), scale()
+            torch.cuda.synchronize()
+            bitwise = torch.equal(got, again)
+            err = float((got - want).abs().max())
+            rel = err / float(ref.abs().max())
+            finite = bool(torch.isfinite(got).all())
+            del got, again, want, ref
+            if not (bitwise and finite and rel <= COUPLING_RTOL[name]):
+                raise AssertionError(f"schur_apply {name} {op}: bitwise {bitwise}, finite "
+                                     f"{finite}, error {rel} (gate {COUPLING_RTOL[name]})")
+            before = ap.launches
+            fn()
+            per_call = ap.launches - before
+            # at most ~300 launches behind the sleep: under 25 a call
+            device_us, host_us = device_and_host_us(lambda _: fn(), [None], calls=10)
+            nbytes = coupling_bytes(ctx, Ws, op)
+            bound = nbytes / HBM_BYTES_PER_S * 1e6
+            ops_line[op] = dict(rel_err=rel, max_abs_err=err, bitwise_twice=bitwise,
+                                kernel_calls=per_call, device_us=device_us, bound_us=bound,
+                                bytes=nbytes, bound_by="bytes", share=bound / device_us,
+                                host_us=host_us,
+                                plain_ms=median_ms(lambda _: of(plain), None, runs=5))
+        line = dict(phase="schur_apply", dtype=name, rows=sum(W.shape[0] for W in Ws),
+                    groups=[W.shape[0] for W in Ws],
+                    widths=[p.orders.width for p in ctx.couplings],
+                    tiles=[p.orders.tiles for p in ctx.couplings], ops=ops_line,
+                    rtol=COUPLING_RTOL[name],
+                    max_rel_err=max(o["rel_err"] for o in ops_line.values()))
+        emit(line)
+        out[name] = line
+        del ctx, plain, cp, Hcc, Hpp, Ws, Hinv, x, u, absW, zero, sums
         release_cuda()
     return out
 
@@ -4269,17 +4392,18 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
 
     from apex_tpu_torch.kernels import graph_conditional as gc
+    from apex_tpu_torch.kernels import schur_apply as ap
     from apex_tpu_torch.kernels import schur_assemble as sa
     from apex_tpu_torch.kernels import spd_inverse as spd
     from apex_tpu_torch.optim import graphs
 
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        for job in [pool.submit(m.build) for m in (lb, spd, gc, sa)]:
+    with ThreadPoolExecutor(5) as pool:
+        for job in [pool.submit(m.build) for m in (lb, spd, gc, sa, ap)]:
             job.result()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              sources=[os.path.relpath(str(m.SOURCE), REPO) for m in (lb, spd, gc, sa)],
+              sources=[os.path.relpath(str(m.SOURCE), REPO) for m in (lb, spd, gc, sa, ap)],
               cuda_runtime_and_driver=gc.versions(),
               config={str(d).replace("torch.", ""): lb.launch_config(d)
                       for d in (torch.float32, torch.float64)},
@@ -4308,6 +4432,9 @@ def main():
     # each path's own checked by ``assembly_calls``
     sa.launches = 0
     graphs.replayed["schur_assemble"] = 0
+    # and the coupling kernels'
+    ap.launches = 0
+    graphs.replayed["schur_apply"] = 0
     ASSEMBLY_CALLS.clear()
     spd_shapes = SpdShapes()
     phase_small_parity()
@@ -4426,6 +4553,13 @@ def main():
     t0 = time.perf_counter()
     sa_measured = phase_schur_assemble()["float64"]
     seconds_assemble = time.perf_counter() - t0
+    # the coupling kernels' calls on the main path, eager and replayed
+    ap_launches = ap.launches + graphs.replayed["schur_apply"]
+    if not ap_launches:
+        raise AssertionError("schur_apply: no call on the main path")
+    t0 = time.perf_counter()
+    ap_measured = phase_schur_apply()["float64"]
+    seconds_apply = time.perf_counter() - t0
 
     main_shape = measured[(65_132, torch.float64)]
     # the SPD kernel's headline: its f64 shape called most on the main path
@@ -4522,6 +4656,26 @@ def main():
         "rows": sa_measured["rows"],
         "dtype": "float64",
         "phase_seconds": seconds_assemble,
+    }, {
+        "name": "schur_apply",
+        "route": "cuda",
+        "source": "apex_tpu_torch/csrc/schur_apply.cu",
+        # the reference leaves the sums over W to XLA
+        "replaces": "apex_tpu/linalg/schur.py (W^T x, W u, Schur-Jacobi blocks)",
+        "launches": ap_launches,
+        "max_rel_err": ap_measured["max_rel_err"],
+        "ms": ap_measured["ops"]["apply_S"]["device_us"] / 1e3,
+        "plain_ms": ap_measured["ops"]["apply_S"]["plain_ms"],
+        "bound_ms": ap_measured["ops"]["apply_S"]["bound_us"] / 1e3,
+        "bound_by": "bytes",
+        # no single PyTorch call computes it
+        "library_ms": None,
+        "share": ap_measured["ops"]["apply_S"]["share"],
+        "ops": {op: {k: o[k] for k in ("device_us", "bound_us", "share", "plain_ms")}
+                for op, o in ap_measured["ops"].items()},
+        "rows": ap_measured["rows"],
+        "dtype": "float64",
+        "phase_seconds": seconds_apply,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

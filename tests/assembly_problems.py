@@ -54,3 +54,36 @@ def behind_a_camera(cp, values):
     moved[g.pool_ids[1]][g.indices[1][0]] = R.T @ (
         pose.new_tensor([0.1, 0.1, 1.0]) - pose[:3])
     return tuple(moved)
+
+
+def pinhole_problem(intrinsics_free=False):
+    """A group that the assembly kernels do not take: the pinhole camera of
+    ``chip_smoke.selfcal_scene`` (6 cameras, 120 points, every point in
+    every view), Huber(2), the first pose fixed and the second pose's x.
+    Each camera's intrinsics are a variable of its own where
+    ``intrinsics_free`` (entities of pose and intrinsics, De = 10), else
+    per-row constants (entities of the pose alone, De = 6)."""
+    from chip_smoke import SELFCAL_MODELS, selfcal_arrays, selfcal_scene
+
+    poses, pts = selfcal_scene()
+    a = selfcal_arrays("pinhole", SELFCAL_MODELS["pinhole"], poses, pts, shared=False)
+    C, P = a["poses0"].shape[0], a["pts0"].shape[0]
+    pose_names = [f"pose_{i:03d}" for i in range(C)]
+    problem = apx.Problem()
+    problem.add_variables_batch(pose_names, "SE3", a["poses0"])
+    problem.add_variables_batch([f"pt_{j:04d}" for j in range(P)], "R3", a["pts0"])
+    slots = [(pose_names, a["cam_idx"]), ([f"pt_{j:04d}" for j in range(P)], a["pt_idx"])]
+    data = {"obs": a["obs"]}
+    if intrinsics_free:
+        intr_names = [f"intr_{i:04d}" for i in range(C)]
+        problem.add_variables_batch(intr_names, "R4", a["intr0"])
+        slots.append((intr_names, a["cam_idx"]))
+        optimize = OPTIMIZE_MODES["self_calibration"]
+    else:
+        data["const_intrinsics"] = a["intr0"][a["cam_idx"]]
+        optimize = OPTIMIZE_MODES["bundle_adjustment"]
+    problem.add_residual_block_batch(slots, ProjectionFactor.template("pinhole", optimize),
+                                     data, loss=apx.HuberLoss(2.0))
+    problem.fix_variable(pose_names[0])
+    problem.fix_variable(pose_names[1], indices=[0])
+    return problem

@@ -10,7 +10,8 @@ import apex_tpu_torch as apx
 from apex_tpu_torch.ba import build_ba_problem
 from apex_tpu_torch.io import synthetic
 from apex_tpu_torch.kernels import landmark_blocks as lb
-from assembly_problems import assembly_scene, behind_a_camera, camera_major_problem
+from assembly_problems import (assembly_scene, behind_a_camera, camera_major_problem,
+                               pinhole_problem)
 from chip_smoke import (SELFCAL_MODELS, extended_chain, rosenbrock_problem, selfcal_problem,
                         selfcal_scene)
 
@@ -1303,10 +1304,11 @@ def test_assembly_kernels_match_plain(card, size, dtype):
 def test_jit_selfcal_ba_with_the_assembly_kernels(card):
     """A small self-calibrating BA in jit mode against python mode: the
     same iterations and status, final cost within rtol 1e-9. The assembly
-    kernels give the same bits run to run, but PCG's sums run by
-    index_add_ in atomic order, and on this problem python mode's own
-    final costs spread by up to 1.1e-10 (six solves on an H100); jit
-    mode's fall inside that spread. The second camera's x is fixed too, so
+    kernels give the same bits run to run; while PCG's sums ran by
+    index_add_ in atomic order, python mode's own final costs on this
+    problem spread by up to 1.1e-10 (six solves on an H100), and jit mode's
+    fell inside that spread (the coupling kernels now take those sums too,
+    ``test_jit_ba_replays_the_coupling_kernels``). The second camera's x is fixed too, so
     that the scale is held by more than the damping. Python mode calls the
     kernels once per group and LM iteration; jit mode records each group's
     call once, replays it once per LM iteration, and its warm-up calls
@@ -1345,7 +1347,10 @@ def test_jit_selfcal_ba_with_the_assembly_kernels(card):
 
 def test_other_cameras_take_the_generic_assembly_on_the_card(card):
     """A pinhole group and an extended camera's group (per-camera
-    intrinsics) assemble by the generic path on the card: no kernel call."""
+    intrinsics) assemble by the generic path on the card: no kernel call.
+    They have their row orders, but their entities (De = 10, 14) are wider
+    than the coupling kernels are built for: W u takes the plain path."""
+    from apex_tpu_torch.kernels import schur_apply as ap
     from apex_tpu_torch.kernels import schur_assemble as sa
     from apex_tpu_torch.linalg.schur import SchurContext
 
@@ -1354,6 +1359,110 @@ def test_other_cameras_take_the_generic_assembly_on_the_card(card):
         problem, _ = selfcal_problem(model, SELFCAL_MODELS[model], poses, pts, shared=False)
         ctx = SchurContext(problem.compile(dtype=torch.float64, device=card))
         assert ctx.couplings and all(p.kernel is None for p in ctx.plans)
-        before = sa.launches
-        ctx.assemble(ctx.cp.initial_values(), 0.1)
-        assert sa.launches == before
+        assert all(p.orders is not None and not ctx._kernel_takes(p) for p in ctx.couplings)
+        before, before_ap = sa.launches, ap.launches
+        Ws = ctx.assemble(ctx.cp.initial_values(), 0.1)[4]
+        ctx._w_u(Ws, torch.ones((ctx.num_landmarks, 3), dtype=torch.float64, device=card))
+        assert sa.launches == before and ap.launches == before_ap
+
+
+# ---------------------------------------------------------------------------
+# the coupling kernels (kernels/schur_apply.py, csrc/schur_apply.cu)
+# ---------------------------------------------------------------------------
+
+# Each result's largest error against the plain path's (gathers, batched
+# products, index_add_), over the largest entry of the same sum taken over
+# |W|, |x|, |u|, |Hpp^-1|: both orders of summation round within (n + 9)
+# units of the dtype's rounding of that scale, n the rows of one sum (at
+# most 150 in these scenes, 9 the terms of a row's product), so the two
+# within 2 x 159 units: 3.5e-14 in f64, 1.9e-5 in f32.
+COUPLING_RTOL = {torch.float64: 1e-13, torch.float32: 5e-5}
+
+
+def _coupling_problems():
+    """The small scenes of the coupling kernels: BAL rows bucketed (four
+    groups, De = 9), flat with the pose alone (De = 6), camera by camera
+    (rows out of landmark order); pinhole rows with constant intrinsics
+    (De = 6, a group the assembly kernels do not take)."""
+    ds = assembly_scene()
+    yield "bal_bucketed", build_ba_problem(ds)
+    yield "bal_flat_pose", build_ba_problem(ds, mode="bundle_adjustment", layout="flat")
+    yield "bal_camera_major", camera_major_problem(ds)
+    yield "pinhole_pose", pinhole_problem()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_coupling_kernels_match_plain(card, dtype):
+    """Every coupling group of each scene has its row orders and takes the
+    kernels, one call per group and sum; two calls give the same bits; W^T
+    x (alone, fused with Hpp^-1, and with Hpp^-1 after the sum where a
+    landmark could lie in two groups), W u and the Schur-Jacobi sum equal
+    the plain path's (the same context built with ``whole_groups=False``)
+    on the same card tensors within ``COUPLING_RTOL``."""
+    from apex_tpu_torch.kernels import schur_apply as ap
+    from apex_tpu_torch.linalg.schur import SchurContext, landmark_inverse
+
+    for name, problem in _coupling_problems():
+        cp = problem.compile(dtype=dtype, device=card)
+        ctx = SchurContext(cp)
+        assert all(p.orders is not None for p in ctx.couplings), name
+        assert all(map(ctx._kernel_takes, ctx.couplings)) and ctx._disjoint_landmarks, name
+        plain = SchurContext(cp, whole_groups=False)
+        assert not any(map(plain._kernel_takes, plain.couplings))
+        Hcc, _, Hpp, _, Ws, _ = ctx.assemble(cp.initial_values(), 0.1)
+        Hinv = landmark_inverse(Hpp)
+        gen = torch.Generator(device=card).manual_seed(0)
+        x = torch.randn(ctx.Dc, dtype=dtype, device=card, generator=gen)
+        u = torch.randn((ctx.num_landmarks, 3), dtype=dtype, device=card, generator=gen)
+        zero, absW = torch.zeros_like(Hcc), [W.abs() for W in Ws]
+        # (the sum, its rounding scale)
+        sums = {"wt_x": (lambda c: c._wt_x(Ws, x), plain._wt_x(absW, x.abs())),
+                "hinv_wt_x": (lambda c: c._wt_x(Ws, x, Hinv),
+                              plain._wt_x(absW, x.abs(), Hinv.abs())),
+                "w_u": (lambda c: c._w_u(Ws, u), plain._w_u(absW, u.abs())),
+                "schur_jacobi": (lambda c: -c._schur_diagonal(zero, Hinv, Ws),
+                                 -plain._schur_diagonal(zero, Hinv.abs(), absW))}
+        before = ap.launches
+        for op, (fn, scale) in sums.items():
+            got, again, want = fn(ctx), fn(ctx), fn(plain)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (name, op)
+            err = float((got - want).abs().max() / scale.abs().max())
+            assert err <= COUPLING_RTOL[dtype], (name, dtype, op, err)
+        assert ap.launches - before == 2 * len(sums) * len(ctx.couplings)
+        ctx._disjoint_landmarks = False
+        fn, scale = sums["hinv_wt_x"]
+        err = float((fn(ctx) - fn(plain)).abs().max() / scale.abs().max())
+        assert err <= COUPLING_RTOL[dtype], (name, dtype, "hinv_wt_x, not fused", err)
+
+
+def test_jit_ba_replays_the_coupling_kernels(card):
+    """The small self-calibrating BA (De = 9, the assembly kernels) and the
+    pinhole scene (De = 6, the generic assembly) in jit mode against python
+    mode: the same iterations and status, final cost within rtol 1e-9 (the
+    jit BA test's tolerance); jit mode replays the coupling kernels'
+    calls; in both modes the kernels take every coupling row
+    (``coupling_kernel_rows`` = ``coupling_rows``)."""
+    from apex_tpu_torch.linalg import schur
+    from apex_tpu_torch.optim import graphs
+
+    bal = build_ba_problem(assembly_scene())
+    bal.fix_variable("pose_0001", indices=[0])
+    kw = dict(linear_solver_type="schur_implicit", max_iterations=10, pcg_forcing=False,
+              pcg_tolerance=1e-10, pcg_max_iterations=200)
+    for problem in (bal, pinhole_problem()):
+        cp = problem.compile(dtype=torch.float64, device=card)
+
+        def counted(mode):
+            rows, kernel_rows = schur.coupling_rows, schur.coupling_kernel_rows
+            res = _jit_solver("lm", mode=mode, **kw).optimize(cp)
+            return res, schur.coupling_rows - rows, schur.coupling_kernel_rows - kernel_rows
+
+        rp, rows, kernel_rows = counted("python")
+        assert rows == kernel_rows > 0
+        replayed = graphs.replayed["schur_apply"]
+        rj, rows, kernel_rows = counted("jit")
+        assert rows == kernel_rows > 0
+        assert graphs.replayed["schur_apply"] > replayed
+        assert (rj.iterations, rj.status) == (rp.iterations, rp.status)
+        np.testing.assert_allclose(rj.final_cost, rp.final_cost, rtol=1e-9)
