@@ -3,7 +3,7 @@
 - ``entry(device="cuda")`` -> (fn, example_args): one full
   Levenberg-Marquardt iteration (linearize, banded assembly, damped block
   cyclic reduction solve, manifold step, Nielsen damping) on a synthetic
-  SE3 pose graph, ``LevenbergMarquardt._make_step_fn``'s step;
+  SE3 pose graph, ``LevenbergMarquardt``'s one step, run eagerly;
 - ``dryrun_multichip(n_ranks, device="cuda", backend=None)``: spawns a world
   of ``n_ranks`` processes and takes one step of each multi-device solve:
   the factor-sharded pose-graph LM with dense and with banded normal
@@ -26,15 +26,15 @@ def _small_problem(n_poses=32, rings=4, seed=0, device="cuda"):
 
 
 def entry(device="cuda"):
-    """(step, (values, damping, nu, iteration, jacobi_scale)): call
-    ``step(*args)`` for one LM iteration on the 32-pose sphere."""
+    """(step, state): ``step(*state)`` is one LM iteration on the 32-pose
+    sphere, and returns the next state. The problem has one pool, so the
+    state is (values, damping, nu, cost, iteration, ...): the pool tensor,
+    then ``LevenbergMarquardt.JIT_STATE``, 0-d tensors after ``values``."""
     from .optim.lm import LevenbergMarquardt, LevenbergMarquardtConfig
 
     cp = _small_problem(device=device)
     lm = LevenbergMarquardt(LevenbergMarquardtConfig(linear_solver_type="sparse_cholesky"))
-    step_fn = lm._make_step_fn(cp)
-    jacobi_scale = torch.ones(cp.total_dof, dtype=cp.dtype, device=cp.device)
-    return step_fn, (cp.initial_values(), 1e-3, 2.0, 0, jacobi_scale)
+    return lm._make_device_step(cp), lm._make_device_init(cp)()
 
 
 def _check(ok, what):

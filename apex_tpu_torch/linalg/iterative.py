@@ -29,9 +29,8 @@ class IterativeNormalSolver:
     """The matrix-free normal-equation solve over a CompiledProblem."""
 
     def __init__(self, cp: CompiledProblem, max_iterations: int = 500,
-                 tolerance: float = 1e-10, sync_free: bool = False):
+                 tolerance: float = 1e-10):
         self.cp = cp
-        self.sync_free = sync_free
         self.max_iterations = max_iterations
         self.tolerance = tolerance
         # [K, dof_s] global tangent columns per group and slot
@@ -90,12 +89,11 @@ class IterativeNormalSolver:
 
         The recurrence's inner products stay in the working dtype, as the
         JAX module's do (its Schur PCG accumulates them in f64; this solver
-        does not), and its scalars stay on the device. Python mode reads
-        one flag back per iteration, the convergence test. With
-        ``sync_free`` (jit mode) the loop is ``graphs.while_update`` over
-        chunks of ``graphs.PCG_CHUNK`` iterations, each masked by the
-        device test (a finished PCG stays finished): eagerly one read per
-        chunk, on a card a WHILE node that reads nothing."""
+        does not), and its scalars stay on the device. The loop is
+        ``graphs.while_update`` over chunks of ``graphs.PCG_CHUNK``
+        iterations, each masked by the device test (a finished PCG stays
+        finished): eagerly one read per chunk, in a captured solve a WHILE
+        node that reads nothing."""
         blocks, g, cost = self._linearize_all(values)
         inv_blocks = self._block_diag_inv(blocks, damping)
         b = -g
@@ -117,11 +115,6 @@ class IterativeNormalSolver:
 
         z = self._apply_prec(inv_blocks, b)
         x, r, p, rz = torch.zeros_like(b), b, z, torch.dot(b, z)
-        if not self.sync_free:
-            state = (x, r, p, rz, 0)
-            while bool(more(*state)):
-                state = iterate(*state)
-            return state[0], g, cost
 
         def chunk(*state):
             for _ in range(graphs.PCG_CHUNK):

@@ -41,11 +41,11 @@ differ from the JAX package's sorted segment sums, and from run to run, by
 rounding; the assembly and coupling kernels sum in a fixed order, so a
 solve whose groups they all take gives the same bits run to run.
 
-Damping and the LM iteration may be device tensors (jit mode). The
-explicit variant's retry ladder is ``graphs.ladder``; with ``sync_free``
-(jit mode) PCG is one ``graphs.while_update`` over chunks of
-``graphs.PCG_CHUNK`` iterations, each iteration masked by a done flag that
-freezes once set, as the reference's ``while_loop``. The preconditioner's
+Damping and the LM iteration may be device tensors. The explicit variant's
+retry ladder is ``graphs.ladder``; PCG is one ``graphs.while_update`` over
+chunks of ``graphs.PCG_CHUNK`` iterations, each iteration masked by a done
+flag that freezes once set, as the reference's ``while_loop``. The
+preconditioner's
 blocks are inverted by the SPD kernel of ``kernels/spd_inverse.py`` for a
 CUDA tensor, so a captured step reads nothing back.
 """
@@ -69,12 +69,12 @@ from .utils import bmv as _bmv
 
 
 # PCG solves, their iterations that did work (PCG still running) and the
-# iterations executed, masked ones after PCG stopped included (jit mode runs
+# iterations executed, masked ones after PCG stopped included (PCG runs
 # PCG_CHUNK per trip of its loop), since import or since a caller last set
-# them to 0. They count where the work runs (``graphs.count``): in python
-# mode as the code runs, in a captured jit solve from the device counts,
-# never in the warm-up. In a captured solve the live iterations are a device
-# count kept only when tracing was on at capture (``utils.profiling``).
+# them to 0. They count where the work runs (``graphs.count``): eagerly as
+# the code runs, in a captured jit solve from the device counts, never in
+# the warm-up. In a captured solve the live iterations are a device count
+# kept only when tracing was on at capture (``utils.profiling``).
 pcg_calls = 0
 pcg_iterations = 0
 pcg_executed = 0
@@ -169,7 +169,6 @@ class SchurContext:
         pcg_forcing: bool = True,
         pp_shift_floor: Optional[float] = None,
         pcg_q_tolerance: Optional[float] = None,
-        sync_free: bool = False,
         whole_groups: bool = True,
     ):
         if variant not in ("sparse", "iterative"):
@@ -178,7 +177,6 @@ class SchurContext:
             raise ValueError(f"unknown preconditioner {preconditioner!r}")
         self.cp = cp
         self.variant = variant
-        self.sync_free = sync_free
         self.preconditioner = preconditioner
         self.pcg_max_iterations = pcg_max_iterations
         self.pcg_tolerance = pcg_tolerance
@@ -524,12 +522,12 @@ class SchurContext:
 
     def _pcg(self, apply_S, apply_M, b, rtol=None, max_iter=None, x0=None):
         """Block-preconditioned conjugate gradients with f64 recurrence
-        scalars. The loop runs on the host and reads one flag per iteration;
-        with ``sync_free`` (jit mode) it is one ``graphs.while_update``, the
-        reference's ``while_loop``, over chunks of ``graphs.PCG_CHUNK``
-        iterations, each masked by a done flag that freezes once set, with
-        the iteration a device counter (and the iterations that did work a
-        second, ``graphs.count_on_device``, where it counts).
+        scalars: one ``graphs.while_update``, the reference's
+        ``while_loop``, over chunks of ``graphs.PCG_CHUNK`` iterations, each
+        masked by a done flag that freezes once set, with the iteration a
+        device counter (and the iterations that did work a second,
+        ``graphs.count_on_device``, where it counts). Eagerly it reads one
+        flag per chunk.
 
         ``x0`` warm-starts from the previous LM iteration's camera step. It
         is guarded: if ||S x0 - b|| is not below ||b|| (a damping jump, a
@@ -562,8 +560,8 @@ class SchurContext:
         Q0 = Qn = Qp = q_of(x, r) if q_tol is not None else None
 
         def go(k, r, Qp, Qn):
-            """Whether iteration k (counted from this call's start: an int,
-            or a 0-d int64 on the device in jit mode) runs."""
+            """Whether iteration k (counted from this call's start, a 0-d
+            int64 on the device) runs."""
             more = dot(r, r) > tol2
             if q_tol is None:
                 return more
@@ -586,15 +584,6 @@ class SchurContext:
             if q_tol is not None:
                 Qp, Qn = Qn, q_of(x, r)
             return x, r, p, rz_new, Qp, Qn
-
-        if not self.sync_free:
-            for k in range(max_iter):
-                if not bool(go(k, r, Qp, Qn)):
-                    break
-                x, r, p, rz, Qp, Qn = iterate(x, r, p, rz, Qp, Qn)
-                graphs.count(globals(), "pcg_iterations")
-                graphs.count(globals(), "pcg_executed")
-            return x
 
         if q_tol is not None:
             Qn, Qp = Qn.clone(), Qp.clone()

@@ -1,17 +1,15 @@
 """Shared optimizer machinery (counterpart of ``apex_tpu/optim/common.py``):
 status codes, convergence configuration and check, step quality, results.
 
-Python mode reads each step's scalars once, so its convergence check and
-step quality are plain functions of Python floats; ``mode="jit"`` uses
-their device forms (``*_t``), nested ``torch.where`` on 0-d tensors in the
-problem's dtype, as the JAX package computes them under jit.
+The convergence check and the step quality are nested ``torch.where`` on
+0-d tensors in the problem's dtype, as the JAX package computes them under
+jit: both loop modes run the one step that calls them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -58,52 +56,6 @@ class ConvergenceConfig:
 
 def check_convergence(
     *,
-    iteration: int,
-    current_cost: float,
-    new_cost: float,
-    parameter_norm: float,
-    parameter_update_norm: float,
-    gradient_norm: float,
-    step_accepted: bool,
-    cfg: ConvergenceConfig,
-    trust_region_radius: Optional[float] = None,
-) -> Status:
-    """The reference's check order. ``iteration`` is the 0-based index of
-    the step that just ran, so max_iterations=N means exactly N steps.
-    Timeout is handled by the host loop."""
-    if not (math.isfinite(new_cost) and math.isfinite(parameter_update_norm)
-            and math.isfinite(gradient_norm)):
-        return Status.INVALID_NUMERICAL_VALUES
-    if iteration + 1 >= cfg.max_iterations:
-        return Status.MAX_ITERATIONS_REACHED
-    if not step_accepted:
-        return Status.RUNNING
-    if gradient_norm < cfg.gradient_tolerance:
-        return Status.GRADIENT_TOLERANCE_REACHED
-    rel_step_tol = cfg.parameter_tolerance * (parameter_norm + cfg.parameter_tolerance)
-    if iteration > 0 and parameter_update_norm <= rel_step_tol:
-        return Status.PARAMETER_TOLERANCE_REACHED
-    rel_change = abs(current_cost - new_cost) / max(current_cost, 1e-10)
-    if iteration > 0 and rel_change < cfg.cost_tolerance:
-        return Status.COST_TOLERANCE_REACHED
-    if cfg.min_cost_threshold is not None and new_cost < cfg.min_cost_threshold:
-        return Status.MIN_COST_THRESHOLD_REACHED
-    if trust_region_radius is not None and trust_region_radius < cfg.min_trust_region_radius:
-        return Status.TRUST_REGION_RADIUS_TOO_SMALL
-    return Status.RUNNING
-
-
-def compute_step_quality(current_cost: float, new_cost: float,
-                         predicted_reduction: float) -> float:
-    """rho = actual / predicted, with the reference's near-zero handling."""
-    actual = current_cost - new_cost
-    if abs(predicted_reduction) < 1e-15:
-        return 1.0 if actual > 0.0 else 0.0
-    return actual / predicted_reduction
-
-
-def check_convergence_t(
-    *,
     iteration,
     current_cost,
     new_cost,
@@ -114,8 +66,10 @@ def check_convergence_t(
     cfg: ConvergenceConfig,
     trust_region_radius: Optional[float] = None,
 ):
-    """``check_convergence`` on 0-d device tensors (``iteration`` an integer
-    tensor): the status as a 0-d int32 tensor, read by no one on the host."""
+    """The reference's check order on 0-d device tensors (``iteration``, an
+    integer tensor, the 0-based index of the step that just ran, so
+    max_iterations=N means exactly N steps): the status as a 0-d int32
+    tensor. Timeout is handled by the host loop."""
     inval = ~(torch.isfinite(new_cost) & torch.isfinite(parameter_update_norm)
               & torch.isfinite(gradient_norm))
     max_iter = iteration + 1 >= cfg.max_iterations
@@ -145,8 +99,9 @@ def check_convergence_t(
     return status
 
 
-def compute_step_quality_t(current_cost, new_cost, predicted_reduction):
-    """``compute_step_quality`` on 0-d device tensors."""
+def compute_step_quality(current_cost, new_cost, predicted_reduction):
+    """rho = actual / predicted on 0-d device tensors, with the reference's
+    near-zero handling."""
     actual = current_cost - new_cost
     tiny = torch.abs(predicted_reduction) < 1e-15
     fallback = (actual > 0.0).to(actual.dtype)

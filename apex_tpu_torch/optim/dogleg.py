@@ -12,15 +12,14 @@
 - a rejected poor step leaves its linearization in a cache, reused at most
   5 times (the parameters have not moved, so it is still exact)
 
-In python mode the trust region, mu and the cache ride where LM's damping
-rides, as a dict; the decision to reuse is taken on the host, and each step
-reads its scalars back once. In ``mode="jit"`` (the reference's
-``state_pack``) delta and mu are 0-d tensors and the cache is fixed device
+One step for both modes, as LM's (the reference's ``state_pack``): delta
+and mu are 0-d tensors of the problem's dtype and the cache is fixed device
 buffers in the loop state (``DogLeg.JIT_STATE``, then the Hessian's
 representation: the dense H, or the band's Dg and Cg); the fresh/reuse
 ``lax.cond`` is a ``graphs.cond_update`` on the device flag, whose body
 (assembly, the solve with mu, the Cauchy point) writes the cache in place,
-and the trust-region update and acceptance are ``torch.where``.
+and the trust-region update and acceptance are ``torch.where``. Python mode
+runs the step eagerly, reading the reuse flag and the iteration's scalars.
 """
 
 from __future__ import annotations
@@ -35,14 +34,7 @@ from ..core.problem import CompiledProblem
 from ..linalg import dense
 from ..utils.profiling import span
 from . import graphs
-from .common import (
-    ConvergenceConfig,
-    Status,
-    check_convergence,
-    check_convergence_t,
-    compute_step_quality,
-    compute_step_quality_t,
-)
+from .common import ConvergenceConfig, Status, check_convergence, compute_step_quality
 from .lm import QR_HOST_LOOP, LevenbergMarquardt, LevenbergMarquardtConfig
 
 MAX_STEP_REUSE = 5
@@ -157,7 +149,7 @@ class DogLeg(LevenbergMarquardt):
         # steps taken from the cache, over this object's solves
         self.reused_steps = 0
         # the Hessian functions per compiled problem (the band plan is host
-        # work), shared by both modes' steps and jit mode's initial state
+        # work), shared by the step and its initial state
         self._hessians = weakref.WeakKeyDictionary()
 
     def _hessian_functions(self, cp: CompiledProblem):
@@ -242,81 +234,6 @@ class DogLeg(LevenbergMarquardt):
 
         return assemble, hsolve, hmatvec, empty_rep
 
-    def _make_step_fn(self, cp: CompiledProblem):
-        dl = self.dl_config
-        ccfg = dl.convergence()
-        assemble, hsolve, hmatvec, _ = self._hessian_functions(cp)
-
-        def step(values, pack, nu, iteration, jacobi_scale):
-            delta, mu, cache = pack["delta"], pack["mu"], pack["cache"]
-            if cache is not None and cache["count"] < MAX_STEP_REUSE and iteration > 0:
-                rep, g, dx_gn, cauchy, current_cost = cache["pieces"]
-                reuse_count = cache["count"] + 1
-                self.reused_steps += 1
-            else:
-                with span("dogleg.assemble"):
-                    rep, g, current_cost = assemble(values)
-                with span("dogleg.solve"):
-                    # mu enters the solve only: rep stays the undamped H
-                    dx_gn = hsolve(rep, g, mu)
-                cauchy = _cauchy_point(g, rep, hmatvec)
-                reuse_count = 0
-
-            dx = _dogleg_step(g, dx_gn, cauchy, delta)
-            predicted = -torch.sum(dx * g) - 0.5 * torch.sum(dx * hmatvec(rep, dx))
-            with span("lm.trial_cost"):
-                new_values = cp.apply_step(values, dx)
-                new_cost_t = cp.cost(new_values)
-            # one read-back of this step's scalars
-            cost_f, new_cost, predicted, gradient_norm, step_norm = torch.stack([
-                current_cost, new_cost_t, predicted,
-                torch.linalg.vector_norm(g), torch.linalg.vector_norm(dx),
-            ]).tolist()
-
-            rho = compute_step_quality(cost_f, new_cost, predicted)
-            accepted = rho > 1e-4
-            good = rho > dl.good_step_quality
-            poor = rho < dl.poor_step_quality
-            if good:
-                new_delta = min(max(delta, 3.0 * step_norm), dl.trust_region_max)
-                new_mu = max(mu / (0.5 * dl.mu_increase_factor), dl.min_mu)
-            else:
-                new_delta = (max(delta * dl.trust_region_decrease_factor, dl.trust_region_min)
-                             if poor else delta)
-                new_mu = mu
-
-            if accepted:
-                values, cost = new_values, new_cost
-            else:
-                cost = cost_f
-            # reuse only what a rejected step left: the parameters have not moved
-            new_cache = None
-            if not accepted and poor and dl.enable_step_reuse:
-                new_cache = dict(pieces=(rep, g, dx_gn, cauchy, current_cost),
-                                 count=reuse_count)
-
-            status = check_convergence(
-                iteration=iteration,
-                current_cost=cost_f,
-                new_cost=cost,
-                parameter_norm=float(cp.parameter_norm(values)),
-                parameter_update_norm=step_norm,
-                gradient_norm=gradient_norm,
-                step_accepted=accepted,
-                cfg=ccfg,
-                trust_region_radius=new_delta,
-            )
-            metrics = dict(rho=rho, accepted=accepted, gradient_norm=gradient_norm,
-                           step_norm=step_norm, new_cost=new_cost)
-            new_pack = dict(delta=new_delta, mu=new_mu, cache=new_cache)
-            return values, new_pack, nu, cost, status, jacobi_scale, metrics
-
-        return step
-
-    def _init_damping_state(self, cp: CompiledProblem, values):
-        dl = self.dl_config
-        return dict(delta=float(dl.trust_region_radius), mu=float(dl.initial_mu), cache=None)
-
     # ------------------------------------------------------------------
     def _make_device_init(self, cp: CompiledProblem):
         """The reference's initial state for DogLeg: the initial values and
@@ -380,7 +297,7 @@ class DogLeg(LevenbergMarquardt):
                 new_cost = cp.cost(new_values)
             gradient_norm = torch.linalg.vector_norm(g)
             step_norm = torch.linalg.vector_norm(dx)
-            rho = compute_step_quality_t(current_cost, new_cost, predicted)
+            rho = compute_step_quality(current_cost, new_cost, predicted)
             accepted = rho > 1e-4
             good = rho > dl.good_step_quality
             poor = rho < dl.poor_step_quality
@@ -394,7 +311,7 @@ class DogLeg(LevenbergMarquardt):
             cost = torch.where(accepted, new_cost, current_cost)
             # reuse only what a rejected step left: the parameters have not moved
             valid = ~accepted & poor & dl.enable_step_reuse
-            status = check_convergence_t(
+            status = check_convergence(
                 iteration=iteration,
                 current_cost=current_cost,
                 new_cost=cost,

@@ -4,8 +4,7 @@ convergence test and linear solvers.
 
 A gauge-free graph makes the undamped H singular: the Cholesky fails, and
 the solvers' retry ladders carry the step on an escalating diagonal shift.
-``mode="jit"`` runs LM's device loop with the step below
-(``_make_device_step``).
+Both modes run LM's loops with the step below (``_make_device_step``).
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ import torch
 from ..core.problem import CompiledProblem
 from ..utils.profiling import span
 from . import graphs
-from .common import ConvergenceConfig, check_convergence, check_convergence_t
+from .common import ConvergenceConfig, check_convergence
 from .lm import LevenbergMarquardt, LevenbergMarquardtConfig
 
 
@@ -76,42 +75,11 @@ class GaussNewton(LevenbergMarquardt):
             pcg_tolerance=gcfg.pcg_tolerance,
         ))
 
-    def _make_step_fn(self, cp: CompiledProblem):
-        ccfg = self.config.convergence()
-        solve_fn = self._make_solve_fn(cp)
-
-        def step(values, damping, nu, iteration, jacobi_scale):
-            dx, g, current_cost, scale, _ = solve_fn(values, 0.0, iteration, jacobi_scale)
-            with span("lm.trial_cost"):
-                new_values = cp.apply_step(values, dx)
-                new_cost = cp.cost(new_values)
-            # one read-back of this step's scalars
-            current_cost, new_cost, gradient_norm, step_norm, parameter_norm = torch.stack([
-                current_cost, new_cost, torch.linalg.vector_norm(g),
-                torch.linalg.vector_norm(dx), cp.parameter_norm(new_values),
-            ]).tolist()
-            status = check_convergence(
-                iteration=iteration,
-                current_cost=current_cost,
-                new_cost=new_cost,
-                parameter_norm=parameter_norm,
-                parameter_update_norm=step_norm,
-                gradient_norm=gradient_norm,
-                step_accepted=True,
-                cfg=ccfg,
-            )
-            metrics = dict(rho=1.0, accepted=True, gradient_norm=gradient_norm,
-                           step_norm=step_norm, new_cost=new_cost)
-            return new_values, damping, nu, new_cost, status, scale, metrics
-
-        step.solve_fn = solve_fn
-        return step
-
     def _make_device_step(self, cp: CompiledProblem):
         """The reference's GN ``step`` on jit state: every step applied, the
         status a device tensor."""
         ccfg = self.config.convergence()
-        solve_fn = self._make_solve_fn(cp, sync_free=True)
+        solve_fn = self._make_solve_fn(cp)
         n_pools = len(cp.pools)
 
         def step(*state):
@@ -124,7 +92,7 @@ class GaussNewton(LevenbergMarquardt):
                 new_cost = cp.cost(new_values)
             gradient_norm = torch.linalg.vector_norm(g)
             step_norm = torch.linalg.vector_norm(dx)
-            status = check_convergence_t(
+            status = check_convergence(
                 iteration=iteration,
                 current_cost=current_cost,
                 new_cost=new_cost,

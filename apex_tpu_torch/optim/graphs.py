@@ -18,8 +18,9 @@ graph (``kernels/graph_conditional.py``, ``csrc/graph_conditional.cu``):
   0-d bool on the device), each loop a WHILE node whose body ends in a
   kernel that sets the handle to ``flag && trips < max_trips``. A launch
   of it reads nothing back.
-- **eager** (python mode, and a CPU problem in ``mode="jit"``): the same
-  branches as plain PyTorch, each reading its flag back once.
+- **eager** (python mode, which runs the step that jit mode captures, and
+  a CPU problem in ``mode="jit"``): the same branches as plain PyTorch,
+  each reading its flag back once.
 - **warm-up** (before a capture): ``fn`` always runs and ``torch.where``
   keeps the old state where ``pred`` is false, so every kernel of every
   branch is initialized before capture, with no host read.
@@ -65,9 +66,10 @@ Other modules' work counters (``linalg.banded.cr_*``,
 adds now in eager form; under capture the graph being captured carries the
 count, and ``tally`` adds it once per device execution of that graph; the
 warm-up adds nothing. ``count_on_device`` adds a device value (PCG's live
-iterations) through an accumulator read with the result; under capture it
-records only while tracing is on (``utils.profiling``), so that a graph
-captured with tracing off holds no node of it.
+iterations): in eager form now, with one read; under capture through an
+accumulator read with the result, recorded only while tracing is on
+(``utils.profiling``), so that a graph captured with tracing off holds no
+node of it.
 ``launch_hook``, where set, wraps every launch of a parent graph:
 ``launch_hook(launch)`` must call ``launch()`` once (the benchmark's
 harness times the launches with it). The program's own timing of the
@@ -199,9 +201,14 @@ def counts_on_device() -> bool:
 
 
 def count_on_device(owner, name, value) -> None:
-    """Add the 0-d integer device tensor ``value`` to ``owner[name]`` with
-    the solve's one read (``device_counts``), where ``counts_on_device()``."""
+    """Add the 0-d integer device tensor ``value`` to ``owner[name]``, where
+    ``counts_on_device()``: now in eager form (one read), else with the
+    solve's one read (``device_counts``)."""
     if not counts_on_device():
+        return
+    if _mode == "eager":
+        profiling.watch(owner, name)
+        owner[name] += int(value)
         return
     key = (id(owner), name, value.device)
     if key not in _accumulators:
@@ -211,7 +218,7 @@ def count_on_device(owner, name, value) -> None:
                                "warm-up makes its accumulator")
         _accumulators[key] = (owner, name, torch.zeros((), dtype=torch.int64,
                                                        device=value.device))
-    if _mode != "warmup":
+    if _mode == "capture":
         _accumulators[key][2].add_(value)
 
 

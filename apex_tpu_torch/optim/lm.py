@@ -6,17 +6,21 @@
 - accept iff rho > 0, exact rollback on rejection
 - convergence checked after each iteration in the reference's order
 
-Two modes, as in the JAX package. ``mode="python"`` (the default) runs each
-iteration eagerly on the problem's device and reads its scalars (costs,
-norms, predicted reduction) back once. ``mode="jit"`` keeps the whole solve
-on the device: accept/reject, the damping, rho and the status are device
-tensors. On a CUDA problem the initial state and the LM loop are one CUDA
-graph captured once per problem, whose IF and WHILE nodes take the step's
-branches (the solvers' ladders, refinement gate, PCG) and the loop itself
-(``graphs.py``), and the host reads the result once (``_optimize_jit``;
-with the QR solvers the loop stays on the host, ``QR_HOST_LOOP``). On the
-CPU the same step runs eagerly, reading the status before each iteration
-and one flag per branch it takes.
+One step, two modes, as in the JAX package. The step
+(``_make_device_init`` / ``_make_device_step``) works on 0-d tensors of the
+problem's dtype: accept/reject, the damping, nu, rho and the status are
+``torch.where`` on the device, bit-equal to the JAX package's jitted step.
+``mode="python"`` (the default) runs it eagerly on the problem's device,
+each branch reading its flag, and reads the iteration's scalars back once
+(``_optimize_python``: statistics, observers, timeout, checkpoints).
+``mode="jit"`` keeps the whole solve on the device: on a CUDA problem the
+initial state and the LM loop are one CUDA graph captured once per
+problem, whose IF and WHILE nodes take the step's branches (the solvers'
+ladders, refinement gate, PCG) and the loop itself (``graphs.py``), and the
+host reads the result once (``_optimize_jit``; with the QR solvers the loop
+stays on the host, ``QR_HOST_LOOP``). On the CPU the same step runs
+eagerly, reading the status before each iteration and one flag per branch
+it takes.
 
 The linear solvers: ``dense_cholesky`` (the default: dense H by
 scatter-add, Cholesky with the retry ladder), ``dense_qr`` (QR of the
@@ -31,10 +35,6 @@ block elimination, any sparsity); ``schur_implicit``, alias
 ``schur_auto`` choosing the explicit variant up to 4096 reduced camera
 DOF; ``pcg`` (matrix-free CG on the normal equations). Every one runs in
 both modes.
-
-In python mode damping, nu and the step quality are numpy scalars of the
-problem's dtype, updated in that dtype as the JAX package updates them in
-its compile dtype; in jit mode they are 0-d tensors of that dtype.
 """
 
 from __future__ import annotations
@@ -44,7 +44,6 @@ import time
 import weakref
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..core.problem import CompiledProblem
@@ -57,9 +56,7 @@ from .common import (
     SolverResult,
     Status,
     check_convergence,
-    check_convergence_t,
     compute_step_quality,
-    compute_step_quality_t,
 )
 
 # schur / schur_auto: the dense reduced camera matrix up to this many
@@ -135,29 +132,14 @@ class LevenbergMarquardtConfig:
         )
 
 
-def _np_float(cp: CompiledProblem):
-    """The numpy scalar type of the problem's dtype."""
-    return np.float64 if cp.dtype == torch.float64 else np.float32
-
-
-def damping_update(damping, nu, rho, accepted: bool, cfg: LevenbergMarquardtConfig):
-    """Nielsen's update of (damping, nu) in the dtype of the numpy scalar
-    ``damping``, with the JAX package's operations in its order: accepted,
-    damping *= max(1/3, 1 - (2 rho - 1)^3) clamped to [damping_min,
-    damping_max] and nu = 2; rejected, damping = min(damping nu,
-    damping_max) and nu *= 2."""
-    t = type(damping)
-    if accepted:
-        coff = t(2.0) * t(rho) - t(1.0)
-        damping = damping * np.maximum(t(1.0 / 3.0), t(1.0) - coff * coff * coff)
-        return np.clip(damping, t(cfg.damping_min), t(cfg.damping_max)), t(2.0)
-    return np.minimum(damping * t(nu), t(cfg.damping_max)), t(nu) * t(2.0)
-
-
-def damping_update_t(damping, nu, rho, accepted, cfg: LevenbergMarquardtConfig):
-    """``damping_update`` on 0-d tensors of the problem's dtype, both
-    branches selected by the bool tensor ``accepted``: bit-equal to the
-    numpy form and to the JAX package's jitted step."""
+def damping_update(damping, nu, rho, accepted, cfg: LevenbergMarquardtConfig):
+    """Nielsen's update of (damping, nu) on 0-d tensors of the problem's
+    dtype, both branches selected by the bool tensor ``accepted``, with the
+    JAX package's operations in its order, bit-equal to its jitted step:
+    accepted, damping *= max(1/3, 1 - (2 rho - 1)^3) clamped to
+    [damping_min, damping_max] and nu = 2; rejected, damping =
+    min(damping nu, damping_max) and nu *= 2. ``cfg`` gives damping_min
+    and damping_max."""
     coff = 2.0 * rho - 1.0
     grown = torch.clamp(damping * torch.clamp_min(1.0 - coff * coff * coff, 1.0 / 3.0),
                         cfg.damping_min, cfg.damping_max)
@@ -167,11 +149,8 @@ def damping_update_t(damping, nu, rho, accepted, cfg: LevenbergMarquardtConfig):
 
 
 def _first_iteration(iteration, first, later):
-    """``first()`` on iteration 0, else ``later``: a host branch on a Python
-    iteration (python mode), a ``torch.where`` on a device counter (jit)."""
-    if isinstance(iteration, torch.Tensor):
-        return torch.where(iteration == 0, first(), later)
-    return first() if iteration == 0 else later
+    """``first()`` on iteration 0 (a device counter), else ``later``."""
+    return torch.where(iteration == 0, first(), later)
 
 
 class LevenbergMarquardt:
@@ -189,8 +168,9 @@ class LevenbergMarquardt:
         # called on the host after each iteration and at the end; a solver
         # with observers runs python mode
         self.observers = []
-        # step functions per compiled problem: the Schur structure analysis
-        # runs once per problem object, and dies with it
+        # python mode's step per compiled problem (``_python_step``): the
+        # Schur structure analysis runs once per problem object, and dies
+        # with it
         self._step_cache = weakref.WeakKeyDictionary()
         # jit mode: the captured graphs and their static state per problem
         self._jit_cache = weakref.WeakKeyDictionary()
@@ -199,11 +179,10 @@ class LevenbergMarquardt:
         self.observers.append(observer)
 
     # ------------------------------------------------------------------
-    def _make_solve_fn(self, cp: CompiledProblem, sync_free: bool = False):
+    def _make_solve_fn(self, cp: CompiledProblem):
         """linearize_and_solve(values, damping, iteration, jacobi_scale)
-        -> (dx, g, cost, scale, predicted). ``sync_free`` (jit mode):
-        damping and iteration are device tensors, and PCG reads its flag
-        per chunk."""
+        -> (dx, g, cost, scale, predicted), damping and iteration 0-d
+        device tensors."""
         cfg = self.config
         aliases = {
             "sparse_cholesky": "banded_cholesky",
@@ -240,7 +219,7 @@ class LevenbergMarquardt:
         if solver_type == "dense_qr":
             return self._make_dense_qr_solve_fn(cp)
         if solver_type == "pcg":
-            return self._make_pcg_solve_fn(cp, sync_free)
+            return self._make_pcg_solve_fn(cp)
         if solver_type not in ("schur_explicit", "schur_implicit", "sparse_schur",
                                "schur", "schur_auto"):
             raise ValueError(f"unknown linear solver {cfg.linear_solver_type!r}")
@@ -258,7 +237,6 @@ class LevenbergMarquardt:
                 # pcg_forcing=False means exact solves, so it disables both
                 # inexact-inner-solve policies
                 pcg_q_tolerance=cfg.pcg_q_tolerance if cfg.pcg_forcing else None,
-                sync_free=sync_free,
             )
 
         if solver_type in ("schur", "schur_auto"):
@@ -287,14 +265,14 @@ class LevenbergMarquardt:
         solve_schur.schur_context = ctx
         return solve_schur
 
-    def _make_pcg_solve_fn(self, cp: CompiledProblem, sync_free: bool = False):
+    def _make_pcg_solve_fn(self, cp: CompiledProblem):
         """Matrix-free block-preconditioned CG on the normal equations."""
         from ..linalg.iterative import IterativeNormalSolver
 
         cfg = self.config
         it_solver = IterativeNormalSolver(
             cp, max_iterations=cfg.pcg_max_iterations * 3,
-            tolerance=min(cfg.pcg_tolerance, 1e-8), sync_free=sync_free)
+            tolerance=min(cfg.pcg_tolerance, 1e-8))
 
         def solve_pcg(values, damping, iteration, jacobi_scale):
             dx, g, cost = it_solver.solve(values, damping)
@@ -403,54 +381,6 @@ class LevenbergMarquardt:
         solve_qr.host_loop = QR_HOST_LOOP
         return solve_qr
 
-    def _make_step_fn(self, cp: CompiledProblem):
-        cfg = self.config
-        ccfg = cfg.convergence()
-        solve_fn = self._make_solve_fn(cp)
-
-        t = _np_float(cp)
-
-        def step(values, damping, nu, iteration, jacobi_scale):
-            dx, g, current_cost, scale, predicted = solve_fn(
-                values, float(damping), iteration, jacobi_scale)
-            if predicted is None:
-                # exact solve: 0.5 step^T (lambda step - g)
-                predicted = 0.5 * torch.sum(dx * (float(damping) * dx - g))
-            with span("lm.trial_cost"):
-                new_values = cp.apply_step(values, dx)
-                new_cost = cp.cost(new_values)
-            # one read-back of this step's scalars
-            current_cost, new_cost, predicted, gradient_norm, step_norm = torch.stack([
-                current_cost, new_cost, predicted,
-                torch.linalg.vector_norm(g), torch.linalg.vector_norm(dx),
-            ]).tolist()
-
-            rho = compute_step_quality(t(current_cost), t(new_cost), t(predicted))
-            accepted = bool(rho > 0.0)
-            damping, nu = damping_update(damping, nu, rho, accepted, cfg)
-            if accepted:
-                values, cost = new_values, new_cost
-            else:
-                cost = current_cost
-
-            status = check_convergence(
-                iteration=iteration,
-                current_cost=current_cost,
-                new_cost=cost,
-                parameter_norm=float(cp.parameter_norm(values)),
-                parameter_update_norm=step_norm,
-                gradient_norm=gradient_norm,
-                step_accepted=accepted,
-                cfg=ccfg,
-                trust_region_radius=cfg.trust_region_radius,
-            )
-            metrics = dict(rho=rho, accepted=accepted, gradient_norm=gradient_norm,
-                           step_norm=step_norm, new_cost=new_cost)
-            return values, damping, nu, cost, status, scale, metrics
-
-        step.solve_fn = solve_fn
-        return step
-
     # ------------------------------------------------------------------
     def optimize(self, problem, initial_values=None, checkpoint=None) -> SolverResult:
         """Run the optimization. A ``Problem`` is compiled with
@@ -485,19 +415,8 @@ class LevenbergMarquardt:
             return self._optimize_jit(cp)
         return self._optimize_python(cp)
 
-    def _init_damping_state(self, cp: CompiledProblem, values):
-        """The state threaded through ``step`` where LM's damping rides: a
-        numpy scalar of the problem's dtype here; DogLeg packs its trust
-        region and step cache."""
-        cfg = self.config
-        t = _np_float(cp)
-        if cfg.damping == "auto":
-            lam0 = t(cfg.damping_tau) * t(float(cp.normal_diag_max(values)))
-            return np.clip(lam0, t(cfg.damping_min), t(cfg.damping_max))
-        return t(cfg.damping if not isinstance(cfg.damping, str) else 1e-3)
-
     def _notify_step(self, cp: CompiledProblem, values, iteration, cost, gradient_norm,
-                     damping, step_norm, rho):
+                     radius, step_norm, rho):
         """The observers' per-iteration hooks: with ``expose_matrix_data``
         first (H, g) at the new point, then ``on_step`` with a fresh dict of
         the variables per observer, all over one host copy of each pool."""
@@ -508,67 +427,74 @@ class LevenbergMarquardt:
                 if hasattr(obs, "set_matrix_data"):
                     obs.set_matrix_data(H, g)
         named = cp.values_dict(values)
-        damping = float(damping["delta"] if isinstance(damping, dict) else damping)
         for obs in self.observers:
-            obs.on_step(dict(named), iteration, cost, gradient_norm, damping, step_norm,
-                        float(rho))
+            obs.on_step(dict(named), iteration, cost, gradient_norm, radius, step_norm, rho)
+
+    def _python_step(self, cp: CompiledProblem):
+        """python mode's step for ``cp``, built once per problem: jit mode's
+        step (``_make_device_step``), with its initial state as ``init``."""
+        step = self._step_cache.get(cp)
+        if step is None:
+            step = self._step_cache[cp] = self._make_device_step(cp)
+            step.init = self._make_device_init(cp)
+        return step
 
     def _optimize_python(self, cp: CompiledProblem, checkpoint=None) -> SolverResult:
+        """The reference's python loop: jit mode's step run eagerly, and one
+        host read of the iteration's scalars after each step."""
         cfg = self.config
         start = time.perf_counter()
+        step = self._python_step(cp)
+        n_pools = len(cp.pools)
+        state = list(step.init())
+        slot = {name: n_pools + k for k, name in enumerate(self.JIT_STATE)}
         if checkpoint is not None:
             values = tuple(torch.tensor(v, dtype=cp.dtype, device=cp.device)
                            for v in checkpoint.values)
-        else:
-            values = cp.initial_values()
-        initial_cost = float(cp.cost(values))
-        if cp not in self._step_cache:
-            self._step_cache[cp] = self._make_step_fn(cp)
-        step_fn = self._step_cache[cp]
-        damping = self._init_damping_state(cp, values)
-        nu = _np_float(cp)(2.0)
-        if checkpoint is not None and not isinstance(damping, dict):
-            damping, nu = _np_float(cp)(checkpoint.damping), _np_float(cp)(checkpoint.nu)
-        jacobi_scale = torch.ones(cp.total_dof, dtype=cp.dtype, device=cp.device)
+            state[:n_pools] = values
+            state[slot["cost"]] = state[slot["initial_cost"]] = cp.cost(values)
+            if "damping" in slot:
+                # DogLeg keeps its own trust region
+                state[slot["damping"]] = torch.full_like(state[slot["damping"]],
+                                                         checkpoint.damping)
+                state[slot["nu"]] = torch.full_like(state[slot["nu"]], checkpoint.nu)
+        # LM's damping or DogLeg's trust region, the first name
+        radius_name = self.JIT_STATE[0]
+        read = [slot[k] for k in ("initial_cost", "cost", "status", "gradient_norm",
+                                  "step_norm", "rho", "n_success", radius_name,
+                                  *self.JIT_COUNTERS)]
 
         stats = [] if (cfg.collect_stats or cfg.verbose) else None
         if cfg.verbose:
             print(IterationStats.HEADER)
 
-        iteration = 0
-        n_succ = n_fail = 0
-        grad_norm = step_norm = float("nan")
-        cost_evals, jac_evals = 1, 0
-        cost = prev_cost = initial_cost
+        iteration = n_success = 0
+        prev_cost = None  # the cost before the iteration, from the second on
         while True:
             it_start = time.perf_counter()
-            values, damping, nu, cost, status, jacobi_scale, metrics = step_fn(
-                values, damping, nu, iteration, jacobi_scale)
-            jac_evals += 1
-            cost_evals += 1
-            accepted = metrics["accepted"]
-            grad_norm = metrics["gradient_norm"]
-            step_norm = metrics["step_norm"]
-            n_succ += accepted
-            n_fail += not accepted
+            state = step(*state)
+            initial_cost, cost, status, gradient_norm, step_norm, rho, n_now, radius, *counts = \
+                torch.stack([state[k].to(torch.float64) for k in read]).tolist()
+            status = Status(int(status))
+            accepted = n_now > n_success
+            n_success = int(n_now)
+            values = state[:n_pools]
 
             if stats is not None:
                 st = IterationStats(
-                    iteration=iteration, cost=cost, cost_change=prev_cost - cost,
-                    gradient_norm=grad_norm, step_norm=step_norm,
-                    tr_ratio=metrics["rho"],
-                    tr_radius=damping["delta"] if isinstance(damping, dict) else damping,
-                    iter_time_ms=(time.perf_counter() - it_start) * 1e3,
-                    total_time_ms=(time.perf_counter() - start) * 1e3,
-                    accepted=accepted)
+                    iteration=iteration, cost=cost,
+                    cost_change=(prev_cost if iteration else initial_cost) - cost,
+                    gradient_norm=gradient_norm, step_norm=step_norm, tr_ratio=rho,
+                    tr_radius=radius, iter_time_ms=(time.perf_counter() - it_start) * 1e3,
+                    total_time_ms=(time.perf_counter() - start) * 1e3, accepted=accepted)
                 stats.append(st)
                 if cfg.verbose:
                     print(st.line())
             prev_cost = cost
 
             if self.observers:
-                self._notify_step(cp, values, iteration, cost, grad_norm, damping, step_norm,
-                                  metrics["rho"])
+                self._notify_step(cp, values, iteration, cost, gradient_norm, radius,
+                                  step_norm, rho)
             if (status == Status.RUNNING and cfg.timeout is not None
                     and time.perf_counter() - start >= cfg.timeout):
                 status = Status.TIMEOUT
@@ -576,6 +502,8 @@ class LevenbergMarquardt:
             if status != Status.RUNNING:
                 break
 
+        for name, count in zip(self.JIT_COUNTERS, counts):
+            setattr(self, name, getattr(self, name) + int(count))
         covariances = None
         if cfg.compute_covariances:
             from ..core.covariance import compute_covariances
@@ -594,12 +522,12 @@ class LevenbergMarquardt:
             final_cost=cost,
             elapsed_seconds=time.perf_counter() - start,
             variables=final_vars,
-            final_gradient_norm=grad_norm,
+            final_gradient_norm=gradient_norm,
             final_step_norm=step_norm,
-            cost_evaluations=cost_evals,
-            jacobian_evaluations=jac_evals,
-            successful_steps=n_succ,
-            unsuccessful_steps=n_fail,
+            cost_evaluations=iteration + 1,
+            jacobian_evaluations=iteration,
+            successful_steps=n_success,
+            unsuccessful_steps=iteration - n_success,
             iteration_stats=stats,
             covariances=covariances,
         )
@@ -639,7 +567,7 @@ class LevenbergMarquardt:
         update and the status are ``torch.where`` on 0-d tensors."""
         cfg = self.config
         ccfg = cfg.convergence()
-        solve_fn = self._make_solve_fn(cp, sync_free=True)
+        solve_fn = self._make_solve_fn(cp)
         n_pools = len(cp.pools)
 
         def step(*state):
@@ -656,12 +584,12 @@ class LevenbergMarquardt:
                 new_cost = cp.cost(new_values)
             gradient_norm = torch.linalg.vector_norm(g)
             step_norm = torch.linalg.vector_norm(dx)
-            rho = compute_step_quality_t(current_cost, new_cost, predicted)
+            rho = compute_step_quality(current_cost, new_cost, predicted)
             accepted = rho > 0.0
-            damping, nu = damping_update_t(damping, nu, rho, accepted, cfg)
+            damping, nu = damping_update(damping, nu, rho, accepted, cfg)
             values = tuple(torch.where(accepted, new, old) for new, old in zip(new_values, values))
             cost = torch.where(accepted, new_cost, current_cost)
-            status = check_convergence_t(
+            status = check_convergence(
                 iteration=iteration,
                 current_cost=current_cost,
                 new_cost=cost,

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from ..core.problem import CompiledProblem, FactorGroup
-from ..optim.common import compute_step_quality_t
+from ..optim.common import compute_step_quality
+from ..optim.lm import LevenbergMarquardtConfig, damping_update
 from .mesh import ProcessMesh
 
 
@@ -115,19 +116,16 @@ def make_sharded_normal_fn(cp: CompiledProblem, mesh: ProcessMesh):
 def nielsen_accept(cp, values, damping, nu, cost, dx, predicted,
                    damping_min, damping_max):
     """The reference's accept / reject and clipped Nielsen update on 0-d
-    tensors: the trial cost of ``values + dx`` against ``cost``, the step
-    taken where rho > 0. -> (values, damping, nu, cost)."""
+    tensors (LM's ``damping_update``): the trial cost of ``values + dx``
+    against ``cost``, the step taken where rho > 0. -> (values, damping,
+    nu, cost)."""
     new_values = cp.apply_step(values, dx)
     new_cost = cp.cost(new_values)
-    rho = compute_step_quality_t(cost, new_cost, predicted)
+    rho = compute_step_quality(cost, new_cost, predicted)
     accepted = rho > 0.0
-    coff = 2.0 * rho - 1.0
-    new_damping = torch.where(
-        accepted,
-        torch.clamp(damping * torch.clamp_min(1.0 - coff ** 3, 1.0 / 3.0),
-                    damping_min, damping_max),
-        torch.clamp_max(damping * nu, damping_max))
-    new_nu = torch.where(accepted, torch.full_like(nu, 2.0), nu * 2.0)
+    new_damping, new_nu = damping_update(
+        damping, nu, rho, accepted,
+        LevenbergMarquardtConfig(damping_min=damping_min, damping_max=damping_max))
     out_values = tuple(torch.where(accepted, a, b) for a, b in zip(new_values, values))
     return out_values, new_damping, new_nu, torch.where(accepted, new_cost, cost)
 

@@ -1377,7 +1377,7 @@ def phase_schur_explicit_full(ds, problem, implicit):
         calls["pairs_s"] = 0.0
         calls["cho_solve"] = 0
         t0 = time.perf_counter()
-        lm._step_cache[cp] = lm._make_step_fn(cp)  # the structure analysis, timed apart
+        lm._python_step(cp)  # the structure analysis, timed apart
         context_s = time.perf_counter() - t0
         ctx = lm._step_cache[cp].solve_fn.schur_context
         if ctx.variant != "sparse":
@@ -1621,7 +1621,7 @@ def phase_general_parity():
             lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
                 linear_solver_type="sparse_general", max_iterations=30, cost_tolerance=1e-6))
             cp = problem.compile(dtype=torch.float64, device=device)
-            lm._step_cache[cp] = lm._make_step_fn(cp)
+            lm._python_step(cp)
             levels[device] = lm._step_cache[cp].solve_fn.general_sparse.sym.n_levels
             results[device] = lm.optimize(cp)
     finally:
@@ -1682,7 +1682,7 @@ def phase_general_full():
             linear_solver_type="sparse_general", max_iterations=100, cost_tolerance=1e-4,
             damping="auto"))
         t0 = time.perf_counter()
-        lm._step_cache[cp] = lm._make_step_fn(cp)  # the symbolic plan, timed apart
+        lm._python_step(cp)  # the symbolic plan, timed apart
         plan_s = time.perf_counter() - t0
         gs = lm._step_cache[cp].solve_fn.general_sparse
         res, timed, profiled, peak, lm_iterations = solve_three_times(lm, cp)
@@ -1734,7 +1734,7 @@ def phase_general_auto():
         linear_solver_type="sparse_cholesky", max_iterations=100, cost_tolerance=1e-4,
         damping="auto"))
     t0 = time.perf_counter()
-    lm._step_cache[cp] = lm._make_step_fn(cp)
+    lm._python_step(cp)
     plan_s = time.perf_counter() - t0
     gs = getattr(lm._step_cache[cp].solve_fn, "general_sparse", None)
     torch.cuda.synchronize()

@@ -137,9 +137,9 @@ def schur_setup():
     dict(start="warm", pcg_forcing=True, iteration=2)],
     ids=["cold", "warm", "q_tolerance", "forcing"])
 def test_device_loop_pcg_matches_jax(schur_setup, options):
-    """``SchurContext._pcg`` in its jit form (``sync_free``: one
-    ``graphs.while_update`` over masked chunks, the iteration a device
-    counter, run eagerly here) against the JAX package's ``while_loop``
+    """``SchurContext._pcg`` (one ``graphs.while_update`` over masked
+    chunks, the iteration a device counter, run eagerly here) against the
+    JAX package's ``while_loop``
     PCG, from a cold start, a warm start, with Nash-Sofer's stop and with
     the forcing sequence at a device iteration."""
     options = dict(options)
@@ -150,7 +150,7 @@ def test_device_loop_pcg_matches_jax(schur_setup, options):
         mp.setenv("APEX_TPU_UNIFORM", "0")
         jctx = JaxSchur(jcp, **kw)
     assert jctx.uniform is None, "the JAX side must run its block path"
-    tctx = SchurContext(tcp, sync_free=True, **kw)
+    tctx = SchurContext(tcp, **kw)
     jx0 = tx0 = None
     if start == "warm":
         ref, *_ = jctx.solve(jvals, DAMPING)

@@ -250,6 +250,19 @@ def test_jit_matches_python_mode(case, port, problems):
         np.testing.assert_allclose(rj.variables[name], v, rtol=1e-10, atol=1e-12)
 
 
+@pytest.mark.parametrize("solver", ["dense_cholesky", "sparse_cholesky"])
+def test_f32_dogleg_jit_matches_python_mode(solver, problems):
+    """DogLeg in f32 on the SE2 fixture: both modes run the one step, delta
+    and mu in the problem's dtype as in the JAX package, so python mode
+    takes jit mode's iterations to its status and its cost, to f32's
+    rounding."""
+    cp = _compile(apx, problems["se2"], np.float32)
+    rp, rj = (_solver(apx, "dl", mode=mode, linear_solver_type=solver).optimize(cp)
+              for mode in ("python", "jit"))
+    assert (rj.iterations, rj.status) == (rp.iterations, rp.status)
+    np.testing.assert_allclose(rj.final_cost, rp.final_cost, rtol=np.finfo(np.float32).eps)
+
+
 @pytest.mark.parametrize("options", [{}, {"pcg_q_tolerance": 0.1}],
                          ids=["forcing_warm_start", "q_tolerance"])
 def test_inexact_implicit_jit_matches_python_mode(problems, options):

@@ -81,12 +81,13 @@ def test_sphere_first_step_matches_apex_tpu(sphere500):
     lm = apx.LevenbergMarquardt(apx.LevenbergMarquardtConfig(
         linear_solver_type="sparse_cholesky", **BENCH))
     jdamp = float(jlm._init_damping_state(jcp, jvals))
-    damp = lm._init_damping_state(cp, values)
-    np.testing.assert_allclose(damp, jdamp, rtol=1e-12)
+    state = lm._make_device_init(cp)()
+    damp = dict(zip(lm.JIT_STATE, state[len(cp.pools):]))["damping"]
+    np.testing.assert_allclose(float(damp), jdamp, rtol=1e-12)
     jdx, jg, jcost, _, _ = jlm._make_solve_fn(jcp)(
         jvals, jnp.asarray(jdamp), jnp.asarray(0), jnp.ones(jcp.total_dof))
     dx, g, cost, _, predicted = lm._make_solve_fn(cp)(
-        values, damp, 0, torch.ones(cp.total_dof, dtype=torch.float64))
+        values, damp, torch.tensor(0), torch.ones(cp.total_dof, dtype=torch.float64))
     assert predicted is None
     np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), rtol=1e-9,
                                atol=1e-9 * np.abs(np.asarray(jdx)).max())
