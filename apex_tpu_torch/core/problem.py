@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re as _re
+from collections.abc import MutableMapping
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,12 +30,17 @@ import torch
 from ..device import resolve_device, resolve_dtype
 from ..factors.base import Factor
 from ..manifolds import get as get_manifold
+from ..utils import profiling
 from ..utils.profiling import annotate
 from .corrector import correct
 from .losses import Loss
 
 
 _DIGIT_RUNS = _re.compile(r"(\d+)")
+
+# row views that ``VariableMap`` made for a caller who read a name
+result_views = 0
+profiling.watch(globals(), "result_views")
 
 
 def _natural_key(name: str):
@@ -78,6 +84,64 @@ class FactorGroup:
     # the factor the group was compiled from (its template, or its first
     # single block): what a kernel that takes the group reads its kind from
     factor: Optional[Factor] = None
+
+
+class VariableMap(MutableMapping):
+    """{name: host storage vector} over one read-only host copy per pool
+    (``hosts``) and a compiled problem's name index (``loc``: name -> (pool,
+    row), in pool order, each pool's names in row order). ``m[name]`` is
+    the row of its pool's copy, a read-only view made when it is read
+    (``result_views`` counts them). The first name assigned or deleted
+    gives the mapping an index of its own (an assigned name maps to None,
+    its value kept in ``_own``), so a change never reaches the copies,
+    another mapping or the compiled problem, and the order is a dict's.
+    Holds nothing of the device."""
+
+    __slots__ = ("_hosts", "_loc", "_own", "_shared")
+
+    def __init__(self, hosts, loc):
+        for host in hosts:
+            host.setflags(write=False)
+        self._hosts = tuple(hosts)
+        self._loc = loc
+        self._own = {}
+        self._shared = True
+
+    def __getitem__(self, name):
+        global result_views
+        where = self._loc[name]
+        if where is None:
+            return self._own[name]
+        result_views += 1
+        return self._hosts[where[0]][where[1]]
+
+    def __contains__(self, name):
+        return name in self._loc
+
+    def __iter__(self):
+        return iter(self._loc)
+
+    def __len__(self):
+        return len(self._loc)
+
+    def _index(self):
+        if self._shared:
+            self._loc, self._shared = dict(self._loc), False
+        return self._loc
+
+    def __setitem__(self, name, value):
+        self._index()[name] = None
+        self._own[name] = value
+
+    def __delitem__(self, name):
+        del self._index()[name]
+        self._own.pop(name, None)
+
+    def __reduce__(self):
+        return type(self), (self._hosts, self._loc), self._own
+
+    def __setstate__(self, own):
+        self._own = own
 
 
 class Problem:
@@ -490,17 +554,14 @@ class CompiledProblem:
         return tuple(p.values0 for p in self.pools)
 
     @annotate("problem.values_dict")
-    def values_dict(self, values) -> Dict[str, np.ndarray]:
-        """{name: host storage vector}: one read-only host copy per pool,
-        each vector a view of its pool's row, as the JAX package hands out
-        (a write raises ``ValueError``). The copy is made on the CPU too, so
-        no array aliases a solver's pool tensor."""
-        out = {}
-        for p, arr in zip(self.pools, values):
-            host = arr.detach().to("cpu", copy=True).numpy()
-            host.setflags(write=False)
-            out.update(zip(p.names, host))
-        return out
+    def values_dict(self, values) -> VariableMap:
+        """{name: host storage vector} as a ``VariableMap``: one read-only
+        host copy per pool, each vector a view of its pool's row, as the JAX
+        package hands out (a write raises ``ValueError``), in its dict's
+        order. The copy is made on the CPU too, so no array aliases a
+        solver's pool tensor."""
+        return VariableMap([arr.detach().to("cpu", copy=True).numpy() for arr in values],
+                           self.var_loc)
 
     def get_value(self, values, name: str) -> torch.Tensor:
         pid, row = self.var_loc[name]

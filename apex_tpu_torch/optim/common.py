@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -145,7 +145,7 @@ class SolverResult:
     initial_cost: float
     final_cost: float
     elapsed_seconds: float
-    variables: Dict[str, np.ndarray]
+    variables: Mapping[str, np.ndarray]
     final_gradient_norm: float = float("nan")
     final_step_norm: float = float("nan")
     cost_evaluations: int = 0

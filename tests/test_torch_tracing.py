@@ -143,6 +143,20 @@ def test_a_trace_reports_the_counters_the_code_counts():
     assert profiling.collect_trace()["counters"]["test_tracing_units"] == 2
 
 
+@pytest.mark.parametrize("mode", ["python", "jit"])
+def test_result_views_counts_the_names_a_caller_reads(ring, mode):
+    """A trace reports ``result_views``: 0 after a solve whose variables
+    nobody reads (the names listed, none read), then one per name read."""
+    profiling.set_tracing(True)
+    result = _lm(mode, linear_solver_type="sparse_cholesky").optimize(ring)
+    names = list(result.variables)
+    assert len(names) == 60 and "x5" in result.variables
+    assert profiling.collect_trace()["counters"]["result_views"] == 0
+    for name in names[:7]:
+        result.variables[name]
+    assert profiling.collect_trace()["counters"]["result_views"] == 7
+
+
 def test_tracing_off_records_nothing(ring, monkeypatch):
     """With tracing off a solve enters no tracer code and records nothing,
     and a span opens ``record_function`` only under the torch profiler."""
