@@ -9,7 +9,14 @@ traffic mix; the harness finds each by name:
   ``generators.GENERATORS`` or of a file ``benchmark/generators/<name>.py``,
   and its sizes), ``build`` (options of the
   problem builder), ``solver`` (the optimizer's configuration fields, with
-  ``mode`` and ``dtype``);
+  ``mode`` and ``dtype``), and optionally ``reference``: the name of its
+  plain reference's file;
+- ``benchmark/references/<reference>.py``: the plain reference that judges
+  the configuration (``PROBLEM``, ``KIND``, ``MODELS``, optionally
+  ``Settings``; the interface is in ``reference.py``'s docstring, and it
+  runs in float32 too, for ``--control``); without the key,
+  ``reference.builtin(problem)``. ``reference_for`` resolves either, once,
+  for ``reference_settings``, the control and ``judge``;
 - ``benchmark/traffic/<traffic>.json``: the parameters of the mix: the
   name of its loop, solver overrides, the quality gate and how many
   answers keep their variables for the comparison;
@@ -72,9 +79,11 @@ def load(root, workload):
     bench = root / "benchmark"
     traffic = json.loads((bench / "traffic" / f"{cell['traffic']}.json").read_text())
     loop = _module(bench / "loops" / f"{traffic['loop']}.py")
+    config = json.loads((root / configs[cell["config"]]["file"]).read_text())
     return {
         "cell": cell,
-        "config": json.loads((root / configs[cell["config"]]["file"]).read_text()),
+        "config": config,
+        "reference": reference_for(bench, config),
         "traffic": traffic,
         "loop": SimpleNamespace(window=loop.window, compared=loop.compared,
                                 traced=getattr(loop, "traced", None)),
@@ -94,6 +103,27 @@ def _module(path):
     return module
 
 
+def reference_for(bench, config):
+    """The plain reference that judges ``config``: the file
+    ``bench/references/<name>.py`` that its ``reference`` key names, or
+    without the key ``reference.builtin`` of its problem."""
+    kind = config["problem"]
+    if "reference" not in config:
+        return reference.builtin(kind)
+    path = bench / "references" / f"{config['reference']}.py"
+    if not path.is_file():
+        raise SystemExit(f"unknown reference {config['reference']!r}: no file {path}")
+    module = _module(path)
+    if module.KIND != kind:
+        raise SystemExit(f"the reference {path} serves {module.KIND!r}, not the "
+                         f"configuration's problem {kind!r}")
+    settings = getattr(module, "Settings", reference.Settings)
+    if not issubclass(settings, reference.Settings):
+        raise SystemExit(f"the Settings of the reference {path} do not extend reference.Settings")
+    return reference.Reference(module.PROBLEM, dict(reference.MODELS[kind], **module.MODELS),
+                               settings)
+
+
 def solver_options(spec, data):
     """The configuration's solver fields with the traffic's overrides; a
     quality gate in pixels becomes ``min_cost_threshold``."""
@@ -109,21 +139,18 @@ def observations(data):
     return data["observations"].shape[0] if "observations" in data else 0
 
 
-def reference_settings(kind, opts):
-    """The reference's settings from the solver fields; a field or a value
-    it does not model raises, so that a configuration never meets a
-    reference that ignores part of it."""
-    allowed = {"optimizer": {"levenberg_marquardt"}, "mode": None, "dtype": None,
-               "linear_solver_type": reference.LINEAR_SOLVERS[kind],
-               "schur_preconditioner": {"schur_jacobi"}}
-    fields = set(reference.Settings.__dataclass_fields__)
+def reference_settings(ref, opts):
+    """The settings of the reference ``ref`` (``reference_for``) from the
+    solver fields; a field or a value it does not model raises, so that a
+    configuration never meets a reference that ignores part of it."""
+    fields = set(ref.settings.__dataclass_fields__)
     for key, value in opts.items():
-        if key in allowed:
-            if allowed[key] is not None and value not in allowed[key]:
+        if key in ref.models:
+            if ref.models[key] is not None and value not in ref.models[key]:
                 raise ValueError(f"the reference does not model {key}={value!r}")
         elif key not in fields:
             raise ValueError(f"the reference does not model the solver field {key!r}")
-    return reference.Settings(**{k: v for k, v in opts.items() if k in fields})
+    return ref.settings(**{k: v for k, v in opts.items() if k in fields})
 
 
 class Record:
@@ -226,12 +253,12 @@ def _control_cases(spec, data, seed, device):
     """The reference in the program's place, one precision below the
     configuration's (float32 for float64): its answers for the problems a
     run compares."""
-    kind = spec["config"]["problem"]
+    ref = spec["reference"]
     cases = []
     for part in spec["loop"].compared(spec, data, seed):
         opts = solver_options(spec, part)
-        low = reference.levenberg_marquardt(
-            reference.PROBLEMS[kind](part, torch.float32, device), reference_settings(kind, opts))
+        low = reference.levenberg_marquardt(ref.problem(part, torch.float32, device),
+                                            reference_settings(ref, opts))
         ans = program.Answer(low.status, low.iterations, low.initial_cost, low.final_cost, None)
         ans.arrays = low.values
         cases.append((part, [ans]))
@@ -240,14 +267,14 @@ def _control_cases(spec, data, seed, device):
 
 def judge(spec, cases, device, gate_answers):
     """The numbers compared and their limits, reference solves included."""
-    kind = spec["config"]["problem"]
+    ref = spec["reference"]
     full = []
     for part, answers in cases:
         opts = solver_options(spec, part)
-        ref_problem = reference.PROBLEMS[kind](part, torch.float64, device)
-        ref = reference.levenberg_marquardt(ref_problem, reference_settings(kind, opts))
-        full.append((part, ref, ref_problem, answers))
-    values = compare.numbers(kind, full)
+        ref_problem = ref.problem(part, torch.float64, device)
+        result = reference.levenberg_marquardt(ref_problem, reference_settings(ref, opts))
+        full.append((part, result, ref_problem, answers))
+    values = compare.numbers(spec["config"]["problem"], full)
     gate = spec["traffic"].get("gate", {})
     values.update(compare.gate_numbers(gate, [a for _, a, n in gate_answers],
                                        [n for _, _, n in gate_answers]))
@@ -261,7 +288,6 @@ def run(spec, seed, seconds, trace, t_process, device=None, control=False, out=s
     code. ``trace_seconds``: the least length of each stretch of the traced
     pass."""
     device = torch.device(device or "cuda")
-    kind = spec["config"]["problem"]
     chips = spec["cell"]["chips"]
     if device.type == "cuda":
         if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
@@ -298,11 +324,6 @@ def run(spec, seed, seconds, trace, t_process, device=None, control=False, out=s
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-
-    found = sorted({name.split(".")[0] for name in list(sys.modules)} & FORBIDDEN)
-    if found:
-        print(f"modules that must not load were loaded: {found}", file=sys.stderr)
-        return 3
 
     walls = [s["wall_s"] for s in record.solves]
     metrics = {}
@@ -368,6 +389,12 @@ def _finite(x):
 
 
 def _report(out, rows, attempted, failed, metrics, device, breakdown, walls=(), setup=None):
+    """Prints the checks and the result line; none where a forbidden module
+    has loaded by now, the reference's solves included."""
+    found = sorted({name.split(".")[0] for name in list(sys.modules)} & FORBIDDEN)
+    if found:
+        print(f"modules that must not load were loaded: {found}", file=sys.stderr)
+        return 3
     correct = failed == 0 and all(ok for *_, ok in rows)
     for name, value, limit, ok in rows:
         print(f"check {name} {value!r} limit {limit!r} {'ok' if ok else 'FAILED'}",

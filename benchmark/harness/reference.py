@@ -25,6 +25,28 @@ the right plus, x * exp(dx) for poses and x + dx for vectors.
   initial damping 1e-11 max diag(J^T J) when ``damping == "auto"``.
 
 Everything runs in the dtype it is given, on the device it is given.
+
+A configuration without a ``reference`` key is judged by ``builtin(kind)``:
+``PROBLEMS[kind]``, with the values of ``MODELS[kind]``.
+One with ``"reference": "<name>"`` brings its own plain reference as a file,
+``benchmark/references/<name>.py``, which ``cell.reference_for`` finds by
+name. The file imports nothing of the program, nor JAX (a run that loads
+it prints no result), and defines:
+
+- ``PROBLEM``: the class built as ``PROBLEM(data, dtype, device)``, with the
+  interface of the classes here: ``initial()``, ``cost(x)``, ``step(x, lam,
+  it, prev, settings) -> (dx, g, cost, predicted)``, ``apply(x, dx)``,
+  ``diag_max(x)``, and for bundle adjustment ``predict(x)`` and ``x0``. It
+  may subclass ``BundleAdjustment`` or ``PoseGraph`` and override only its
+  linear solve. It has to run in float32 too: ``--control`` builds it one
+  precision below the configuration's;
+- ``KIND``: the configuration's ``problem`` it serves;
+- ``MODELS``: the values it models of each solver field, merged over
+  ``MODELS[KIND]`` (``{"linear_solver_type": {"sparse_schur"}}``);
+- optionally ``Settings``: a dataclass extending ``Settings`` here, for a
+  field that only this reference reads.
+
+``levenberg_marquardt`` drives every reference; a file does not copy it.
 """
 
 from __future__ import annotations
@@ -408,9 +430,29 @@ class PoseGraph:
 
 
 PROBLEMS = {"bundle_adjustment": BundleAdjustment, "pose_graph": PoseGraph}
-# the solver's linear solvers whose steps each reference computes, as the
-# configurations name them: the implicit Schur PCG, and an exact solve
-LINEAR_SOLVERS = {
-    "bundle_adjustment": {"schur_implicit"},
-    "pose_graph": {"sparse_cholesky"},
+_SOLVER = {"optimizer": {"levenberg_marquardt"}, "mode": None, "dtype": None,
+           "schur_preconditioner": {"schur_jacobi"}}
+# the solver fields each built-in reference models and the values it models of
+# each (None: any value), every field of ``Settings`` besides; its linear
+# solvers as the configurations name them: the implicit Schur PCG, and an
+# exact solve
+MODELS = {
+    "bundle_adjustment": dict(_SOLVER, linear_solver_type={"schur_implicit"}),
+    "pose_graph": dict(_SOLVER, linear_solver_type={"sparse_cholesky"}),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class Reference:
+    """The plain reference of one configuration: the class built as
+    ``problem(data, dtype, device)``, the values it models of each solver
+    field, and its settings' dataclass."""
+
+    problem: type
+    models: dict
+    settings: type = Settings
+
+
+def builtin(kind):
+    """The reference of a configuration that names no reference file."""
+    return Reference(PROBLEMS[kind], MODELS[kind])

@@ -159,15 +159,33 @@ def test_a_run_loads_no_jax_and_no_benchmark_of_the_program(tmp_path):
                 or m.split(".")[0] == "benches"]
 
 
-def test_the_yardstick_imports_nothing_of_the_program():
-    code = ("import sys\n"
+def _yardstick_modules(references, path=()):
+    """The top-level modules that the harness's yardstick and every
+    reference file in ``references`` load, in a process of their own with
+    ``path`` first on ``sys.path``."""
+    code = ("import importlib.util, pathlib, sys\n"
+            f"sys.path[:0] = {[str(p) for p in path]!r}\n"
             "from harness import compare, generators, lie, reference, roofline\n"
+            f"for p in sorted(pathlib.Path({str(references)!r}).glob('*.py')):\n"
+            "    s = importlib.util.spec_from_file_location(f'reference_{p.stem}', p)\n"
+            "    s.loader.exec_module(importlib.util.module_from_spec(s))\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}))\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=str(ROOT / "benchmark"), timeout=300)
     assert proc.returncode == 0, proc.stderr
-    top = set(eval(proc.stdout.strip().splitlines()[-1]))
+    return set(eval(proc.stdout.strip().splitlines()[-1]))
+
+
+def test_the_yardstick_imports_nothing_of_the_program(tmp_path):
+    """Nor does any reference file under ``benchmark/references``; a file
+    that imports the program is seen."""
+    top = _yardstick_modules(ROOT / "benchmark" / "references")
     assert not top & (cell.FORBIDDEN | {"apex_tpu_torch"})
+    (tmp_path / "stub").mkdir()
+    (tmp_path / "stub" / "apex_tpu_torch.py").write_text("")
+    (tmp_path / "refs").mkdir()
+    (tmp_path / "refs" / "leaky.py").write_text("import apex_tpu_torch  # noqa: F401\n")
+    assert "apex_tpu_torch" in _yardstick_modules(tmp_path / "refs", [tmp_path / "stub"])
 
 
 def test_no_benchmark_file_names_the_programs_benchmarks():

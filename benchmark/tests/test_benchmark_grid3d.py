@@ -110,8 +110,8 @@ def test_the_reference_solve_follows_the_programs_jit_mode_in_the_general_tier(n
     ours = program.solver(opts).optimize(cp)
     work = {k: getattr(sg, k) - before[k] for k in WORK}
     assert work["general_solves"] == ours.iterations == work["general_core_factors"]
-    ref = reference.levenberg_marquardt(reference.PoseGraph(data, torch.float64, "cpu"),
-                                        cell.reference_settings("pose_graph", opts))
+    settings = cell.reference_settings(reference.builtin("pose_graph"), opts)
+    ref = reference.levenberg_marquardt(reference.PoseGraph(data, torch.float64, "cpu"), settings)
     assert (ours.status.name, ours.iterations) == (ref.status, ref.iterations)
     assert ours.final_cost == pytest.approx(ref.final_cost, rel=1e-7)
 
